@@ -1,0 +1,59 @@
+"""Import guard: the port and chip_smoke.py never load JAX or vpd_tpu.
+
+Importing `vpd_tpu` pulls in jax and turns on the XLA compile cache, and
+the GPU host has no JAX at all, so `vpd_tpu_torch` (every submodule) and
+`chip_smoke.py` must import neither. Checked both in a fresh interpreter
+and in the sources.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'vpd_tpu')
+
+_PROBE = r'''
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {repo!r})
+import vpd_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vpd_tpu_torch.__path__,
+                                               'vpd_tpu_torch.')]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # its import block, not main()
+forbidden = {forbidden!r}
+print(json.dumps({{'modules': names, 'loaded': sorted(
+    m for m in sys.modules if m.split('.')[0] in forbidden)}}))
+'''
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    proc = subprocess.run(
+        [sys.executable, '-c', _PROBE.format(repo=REPO,
+                                             forbidden=FORBIDDEN)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, OMP_NUM_THREADS='1'))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert 'vpd_tpu_torch.infer.apply_vpd' in out['modules']
+    assert 'vpd_tpu_torch.tools.apply_vpd' in out['modules']
+    assert out['loaded'] == []
+
+
+def test_port_sources_import_no_jax():
+    pattern = re.compile(r'^\s*(?:from|import)\s+({})\b'.format(
+        '|'.join(FORBIDDEN)), re.M)
+    files = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, names in os.walk(os.path.join(REPO, 'vpd_tpu_torch')):
+        files += [os.path.join(root, n) for n in names if n.endswith('.py')]
+    offenders = {}
+    for path in files:
+        with open(path) as fp:
+            found = pattern.findall(fp.read())
+        if found:
+            offenders[os.path.relpath(path, REPO)] = found
+    assert len(files) > 20
+    assert offenders == {}

@@ -1,0 +1,36 @@
+"""vpd_tpu_torch: the PyTorch/CUDA port of vpd_tpu for NVIDIA Hopper.
+
+The layout mirrors `vpd_tpu/` module for module, so each file's JAX
+counterpart sits at the same relative path. This package imports torch and
+numpy only: never jax, flax or anything of `vpd_tpu` (tests import both
+packages to hold one against the other).
+
+Layer map (the ported slice: student feature extraction):
+  core/      io + `.emb.pkl` interchange, flax-msgpack checkpoints, pipeline
+  data/      eval transforms, crop PNG decode, packed raw shards
+  ops/       hand-written CUDA kernels (csrc/) with their plain twins
+  models/    ResNet student, FCNet, flax weight mapping
+  train/     student modules and the config.json manifest
+  infer/     batched embedding extraction (.emb.pkl writers)
+  tools/     CLI entry points
+
+Entry points run on the GPU unless the caller passes `device='cpu'`.
+"""
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None):
+    """The torch device an entry point runs on: `None` means CUDA.
+
+    Raises when CUDA is asked for (explicitly or by default) but no GPU is
+    present, instead of silently running on the CPU.
+    """
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device is available; pass device="cpu" to run the '
+            'plain PyTorch path on the CPU')
+    return device

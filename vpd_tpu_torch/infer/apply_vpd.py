@@ -1,0 +1,249 @@
+"""VPD student feature extraction: crops -> per-video .emb.pkl.
+
+Counterpart of `vpd_tpu/infer/apply_vpd.py` (reference
+`apply_vpd_model.py` + `FrameDataset`): every crop is embedded as the
+variants [orig, flip] and written as (frame, (k, D), {}) rows per video,
+sorted by frame. Flipped variants use flipped flow with the x channel
+negated. Only the encoder runs (the motion head is train-only).
+
+On CUDA the host decodes each chunk into pinned uint8 buffers, a side
+stream copies them to the card, the preprocess kernel (`ops/preprocess`)
+writes the orig and flipped variants of the chunk into one (2B, H, W, C)
+bf16 channels_last buffer, and the encoder runs once over it. Decode runs
+one chunk ahead and readback one chunk behind (`core/pipeline`).
+
+Not ported yet, and raising NotImplementedError: colour-jitter variants
+(ROADMAP A4), the yuv420 upload codec (A3) and the multi-device fan-out
+(A11).
+"""
+
+import os
+import re
+
+import torch
+
+from .. import resolve_device
+from ..core import checkpoint as ckpt
+from ..core.io import load_json, store_pickle
+from ..core.pipeline import run_pipelined
+from ..data.crops import decode_crop_batch
+from ..data.shards import fill_or_decode
+from ..models.flax_weights import load_encoder_from_flax, load_motion_from_flax
+from ..ops.preprocess import preprocess_crops, preprocess_orig_and_flip
+from ..train.vpd_loop import build_student
+
+EXTRACT_BATCH = 512
+
+
+def _not_ported(jitter=0, upload_codec=None, mesh=None):
+    if jitter:
+        raise NotImplementedError(
+            'colour-jitter extraction variants are training augmentation, '
+            'not ported yet (ROADMAP A4)')
+    if upload_codec not in (None, 'raw'):
+        raise NotImplementedError(
+            'upload_codec="{}" is not ported yet (ROADMAP A3: the yuv420 '
+            'upload codec)'.format(upload_codec))
+    if mesh is not None:
+        raise NotImplementedError(
+            'the multi-device fan-out is not ported yet (ROADMAP A11)')
+
+
+def load_student_dir(model_dir, model_epoch=None, dtype=None, device=None):
+    """(model, config) of a student dir written by either package, in eval
+    mode on `device` (CUDA by default)."""
+    device = resolve_device(device)
+    config = load_json(os.path.join(model_dir, 'config.json'))
+    model = build_student(config, dtype=dtype)
+    name = ('best_epoch' if model_epoch is None
+            else 'epoch{:04d}'.format(model_epoch))
+    load_encoder_from_flax(model.encoder, ckpt.load_component(
+        model_dir, name, 'encoder'))
+    if model.motion is not None:
+        load_motion_from_flax(model.motion, ckpt.load_component(
+            model_dir, name, 'decoder'))
+    return model.to(device).eval(), config
+
+
+def make_variant_embed(model, config, jitter=0, flip=True,
+                       upload_codec=None, device=None):
+    """fn(rgb_u8, flow_u8) -> (B, k, D) float32 variant embeddings.
+
+    Inputs are (B, S, S, 3) uint8 tensors on `device` (flow None for RGB
+    models); variants are [orig, flip]. Moves `model` to `device` (CUDA
+    by default). On CUDA the preprocess kernel writes bf16, the kernel's
+    one output type; on the CPU the plain twin writes the encoder's type.
+    """
+    _not_ported(jitter, upload_codec)
+    device = resolve_device(device)
+    mean, std = config['rgb_mean_std']
+    use_flow = config['use_flow']
+    encoder = model.encoder.to(device).eval()
+    if device.type == 'cuda':
+        # conv weights in NHWC order: the kernel's output feeds cuDNN as is
+        encoder.to(memory_format=torch.channels_last)
+        out_dtype = torch.bfloat16
+    else:
+        out_dtype = encoder.compute_dtype
+
+    @torch.inference_mode()
+    def fn(rgb_u8, flow_u8):
+        fl = flow_u8 if use_flow else None
+        b = rgb_u8.shape[0]
+        if flip:
+            x = preprocess_orig_and_flip(rgb_u8, fl, mean, std,
+                                         out_dtype=out_dtype)
+        else:
+            x = preprocess_crops(
+                rgb_u8, fl, torch.zeros(b, dtype=torch.int32,
+                                        device=rgb_u8.device),
+                mean, std, out_dtype=out_dtype)
+        embs = encoder(x.permute(0, 3, 1, 2))  # NHWC buffer, NCHW view
+        return embs.reshape(x.shape[0] // b, b, -1).transpose(0, 1)
+
+    return fn
+
+
+def scan_crop_dir(crop_dir):
+    """Generic layout: crop_dir/<video>/<frame>.png
+    (`apply_vpd_model.py:69-89`)."""
+    img_re = re.compile(r'^\d+\.png$')
+    videos = []
+    tasks = []
+    for video_name in sorted(os.listdir(crop_dir)):
+        video_crop_dir = os.path.join(crop_dir, video_name)
+        if not os.path.isdir(video_crop_dir):
+            continue
+        video_id = len(videos)
+        videos.append(video_name)
+        for img_file in sorted(os.listdir(video_crop_dir)):
+            if img_re.match(img_file):
+                frame_num = int(os.path.splitext(img_file)[0])
+                tasks.append((video_id, frame_num,
+                              os.path.join(video_crop_dir,
+                                           str(frame_num))))
+    return videos, tasks
+
+
+def scan_tennis_crop_dir(video_dir, crop_dir):
+    """Tennis layout: per-player crops named by source-video frame; output
+    videos are '<player>__<clip>' (`apply_vpd_model.py:36-66`)."""
+    videos = []
+    tasks = []
+    for video_file in sorted(os.listdir(video_dir)):
+        if not video_file.endswith('.mp4'):
+            continue
+        video_name = os.path.splitext(video_file)[0]
+        src_video_name, start_frame, end_frame = video_name.rsplit('_', 2)
+        start_frame, end_frame = int(start_frame), int(end_frame)
+        for player in ('front', 'back'):
+            video_id = len(videos)
+            videos.append('{}__{}'.format(player, video_name))
+            for frame_num in range(start_frame, end_frame + 1):
+                prefix = os.path.join(crop_dir, src_video_name, player,
+                                      str(frame_num))
+                if os.path.isfile(prefix + '.png'):
+                    tasks.append((video_id, frame_num - start_frame, prefix))
+    return videos, tasks
+
+
+def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
+              flow_img_name=None, jitter=0, no_flip=False,
+              batch_size=EXTRACT_BATCH, mesh=None, log=print,
+              prepared=None, embed_fn=None, shard_reader=None,
+              upload_codec=None, device=None):
+    """Extract embeddings for `tasks` [(video_id, frame, path prefix)] into
+    `out_dir`/<video>.emb.pkl, on `device` (CUDA by default).
+
+    `prepared=(model, config)` and `embed_fn` (the `make_variant_embed`
+    contract) let repeated calls reuse the loaded weights. `shard_reader`
+    (`data.shards.ShardReader` built with crop_root) replaces PNG decode
+    with a memmap gather for packed crops.
+    """
+    _not_ported(jitter, upload_codec, mesh)
+    device = resolve_device(device)
+    model, config = (prepared if prepared is not None
+                     else load_student_dir(model_dir, model_epoch,
+                                           device=device))
+    use_flow = config['use_flow']
+    if use_flow and not flow_img_name:
+        raise ValueError('model uses flow; pass flow_img_name')
+    img_dim = config['img_dim']
+    if embed_fn is not None and no_flip:
+        raise ValueError(
+            'embed_fn bakes in its own variant set; passing no_flip '
+            'alongside it would be silently ignored')
+    embed = embed_fn if embed_fn is not None else make_variant_embed(
+        model, config, flip=not no_flip, device=device)
+    on_cuda = device.type == 'cuda'
+    copy_stream = torch.cuda.Stream(device) if on_cuda else None
+
+    def decode_chunk(chunk):
+        # fresh pinned buffers per chunk: one is never rewritten while its
+        # async copy is in flight (the caching host allocator holds each
+        # block until the copy that read it has finished)
+        n = len(chunk)
+        rgb = torch.empty((n, img_dim, img_dim, 3), dtype=torch.uint8,
+                          pin_memory=on_cuda)
+        flow = (torch.empty((n, img_dim, img_dim, 3), dtype=torch.uint8,
+                            pin_memory=on_cuda) if use_flow else None)
+        prefixes = [prefix for _, _, prefix in chunk]
+        flow_np = flow.numpy() if flow is not None else None
+        if shard_reader is not None:
+            fill_or_decode(shard_reader, prefixes, img_dim,
+                           flow_img_name=flow_img_name, rgb_out=rgb.numpy(),
+                           flow_out=flow_np)
+        else:
+            decode_crop_batch(
+                [p + '.png' for p in prefixes], img_dim,
+                flow_paths=(['{}.{}.png'.format(p, flow_img_name)
+                             for p in prefixes] if use_flow else None),
+                rgb_out=rgb.numpy(), flow_out=flow_np)
+        return rgb, flow
+
+    def compute(host):
+        rgb, flow = host
+        if not on_cuda:
+            return embed(rgb, flow), None
+        # upload on a side stream so it overlaps the previous chunk's
+        # encoder; the compute stream waits for it before the kernel
+        compute_stream = torch.cuda.current_stream(device)
+        with torch.cuda.stream(copy_stream):
+            rgb = rgb.to(device, non_blocking=True)
+            flow = (flow.to(device, non_blocking=True)
+                    if flow is not None else None)
+        compute_stream.wait_stream(copy_stream)
+        for t in (rgb, flow):
+            if t is not None:
+                t.record_stream(compute_stream)
+        out = embed(rgb, flow)
+        done = torch.cuda.Event()
+        done.record(compute_stream)
+        return out, done
+
+    all_embs = [[] for _ in videos]
+
+    def collect(chunk, result):
+        dev_out, done = result
+        if done is not None:
+            done.synchronize()  # the chunk's stream is done with the output
+        embs = dev_out.float().cpu().numpy()
+        for j, (video_id, frame_num, _) in enumerate(chunk):
+            row = embs[j] if embs.shape[1] > 1 else embs[j, 0]
+            all_embs[video_id].append((frame_num, row, {}))
+
+    chunks = [tasks[i:i + batch_size]
+              for i in range(0, len(tasks), batch_size)]
+    run_pipelined(chunks, decode_chunk, compute, collect)
+
+    os.makedirs(out_dir, exist_ok=True)
+    written = 0
+    for video_name, embs in zip(videos, all_embs):
+        if embs:
+            embs.sort(key=lambda x: x[0])
+            store_pickle(
+                os.path.join(out_dir, '{}.emb.pkl'.format(video_name)), embs)
+            written += 1
+        else:
+            log('{} has no crops'.format(video_name))
+    log('Wrote {} videos'.format(written))

@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+At first use every `vpd_tpu_torch/csrc/*.cu` is compiled for sm_90a, one
+nvcc process per source, all started together, and linked into one shared
+library with a plain C interface:
+
+    vpd_tpu_torch/_build/<hash>/libvpd_tpu_torch_kernels.so
+
+`<hash>` covers the sources and the flags, so an edited source rebuilds
+and a stale library is never loaded. Every file is written under a temp
+name and `os.replace`d into place, so concurrent builds (test workers, a
+smoke run) cannot race. No PyTorch headers are compiled: a build takes
+seconds. A missing nvcc or a failed build raises with the compiler's
+output.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG_DIR / 'csrc'
+BUILD_DIR = _PKG_DIR / '_build'
+LIB_NAME = 'libvpd_tpu_torch_kernels.so'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-Xcompiler', '-fPIC')
+
+# ctypes signatures of the exported entry points: restype, argtypes
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # rgb, flow, flow_c, flip, out, B, H, W, mean x3, inv_std x3, mode,
+    # stream -> cudaError_t
+    'vpd_preprocess_crops': (_I, (_P, _P, _I, _P, _P, _I, _I, _I,
+                                  _F, _F, _F, _F, _F, _F, _I, _P)),
+}
+
+
+def find_nvcc():
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's default home."""
+    candidates = []
+    if os.environ.get('CUDA_HOME'):
+        candidates.append(os.path.join(os.environ['CUDA_HOME'], 'bin',
+                                       'nvcc'))
+    on_path = shutil.which('nvcc')
+    if on_path:
+        candidates.append(on_path)
+    candidates.append('/usr/local/cuda/bin/nvcc')
+    for path in candidates:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        'nvcc not found (looked in $CUDA_HOME/bin, $PATH and '
+        '/usr/local/cuda/bin): the CUDA toolkit is needed to build the '
+        'kernels in {}'.format(SRC_DIR))
+
+
+def sources():
+    srcs = sorted(SRC_DIR.glob('*.cu'))
+    if not srcs:
+        raise RuntimeError('no CUDA sources in {}'.format(SRC_DIR))
+    return srcs
+
+
+def source_hash():
+    """Hash of the flags and every file in csrc/ (sources and headers)."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in sorted(SRC_DIR.iterdir()):
+        h.update(path.name.encode() + b'\0' + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run(procs):
+    """Wait for every (cmd, Popen); raise with the output of any failure."""
+    failures = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append('$ {}\n{}'.format(' '.join(cmd), out))
+    if failures:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(failures))
+
+
+def build():
+    """Compile the sources if this hash is not built yet; the .so path."""
+    out_dir = BUILD_DIR / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs, objs = [], []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + '.o')
+            cmd = [nvcc, *NVCC_FLAGS, '-c', str(src), '-o', obj]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objs.append(obj)
+        _run(procs)
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        cmd = [nvcc, *NVCC_FLAGS, '-shared', *objs, '-o', tmp_lib]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))])
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernels():
+    """The kernels' shared library, built if needed, with typed entries."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
