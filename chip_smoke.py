@@ -6,23 +6,37 @@
 Run from the repository root on a machine with one H100. Phases, one JSON
 line each; any failure raises and exits non-zero:
 
-  env      card name and power limit (nvidia-smi), torch/CUDA versions;
-           requires compute capability 9.0
-  build    compiles every kernel in vpd_tpu_torch/csrc with nvcc
-  kernels  each kernel against its plain PyTorch twin on the card at the
-           extraction shapes, and its time beside its bound
-  slice    the student extraction path end to end at full width
-           (ResNet-34, 32-d, 128x128, batch 512, orig + flip): random-init
-           students written with the port's checkpoint writer, raw shards
-           (and PNGs when cv2 or PIL is present), `apply_vpd` on cuda with
-           the kernel launch counts checked, outputs held against the same
-           weights in float32 with the plain preprocess and TF32 off
+  env        card name and power limit (nvidia-smi), torch/CUDA versions;
+             requires compute capability 9.0
+  build      compiles every kernel in vpd_tpu_torch/csrc with nvcc
+  kernels    each kernel against its plain PyTorch twin on the card:
+             B1 (preprocess) at the extraction shapes, timed beside its
+             bound; B2 (all-pairs DTW) for both step patterns at L in
+             {128, 512}, D in {32, 64}, and a subset against the f64 host
+             DP
+  recognize  DTW few-shot recognition and retrieval end to end at the
+             full fs protocol (the real all.txt, val ids, few-shot split
+             files and cached fps; 1446 actions; synthetic (2, 32)
+             embeddings with a class signal): the recognize CLI on cuda
+             for -ne 4 16 64 x 10 trials, -ne -1, and --retrieve, with
+             B2's launch count checked, the full-data accuracy held at
+             >= 0.9, the d1 sweep held against the twin on the card and a
+             twin-backed run of the whole protocol; B2 timed at the kNN
+             sweep's real shape beside its bound
+  slice      the student extraction path end to end at full width
+             (ResNet-34, 32-d, 128x128, batch 512, orig + flip): random-init
+             students written with the port's checkpoint writer, raw shards
+             (and PNGs when cv2 or PIL is present), `apply_vpd` on cuda with
+             the kernel launch counts checked, outputs held against the same
+             weights in float32 with the plain preprocess and TF32 off
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
 `.smoke/` in the checkout and are removed at the end.
 """
 
+import contextlib
+import io
 import json
 import os
 import pickle
@@ -35,10 +49,19 @@ import time
 import numpy as np
 import torch
 
+from vpd_tpu_torch.core.io import store_embs_pickle
 from vpd_tpu_torch.data.shards import ShardReader, write_raw_shards
+from vpd_tpu_torch.datasets.eval_splits import FS_TEST_PREFIXES
+from vpd_tpu_torch.datasets.metadata_cache import load_meta_cache
+from vpd_tpu_torch.datasets.recognition_data import (ACTION_DATA_DIR,
+                                                     FS_CLASSES)
 from vpd_tpu_torch.infer import apply_vpd as ap
 from vpd_tpu_torch.ops import _build
+from vpd_tpu_torch.ops import dtw_kernel as dtwk
 from vpd_tpu_torch.ops import preprocess as pre
+from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
+from vpd_tpu_torch.tasks import neighbors as nb
+from vpd_tpu_torch.tools import recognize as recognize_cli
 from vpd_tpu_torch.train.vpd_loop import (build_student, default_config,
                                           save_student)
 
@@ -53,6 +76,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM, float32 outside the tensor cores
 TOL = 0.02                 # bf16 rounding of values in [-4.2, 4.4]
 COS_BAR = 0.999
+# B2 against its twin: the twin's matmul-form cost cancels for
+# near-identical rows, the kernel sums (q - t)^2 directly
+DTW_TOL = 1e-3
+DTW_HOST_RTOL = 5e-3       # against the f64 host DP: the JAX kernel's bar
+FS_EMB = 32                # the student's width: (2, 32) rows, orig + flip
+FS_SHOTS, FS_TRIALS = [4, 16, 64], 10
+FS_HITS = [1, 10, 25, 50]
+FS_ACC_BAR = 0.9           # full-data accuracy; chance is 1/6
 
 
 def emit(obj):
@@ -192,6 +223,251 @@ def phase_kernels():
             'bound_ms': bound_ms,
             'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
             'library_ms': None}
+
+
+def _dtw_inputs(gen, n_q, n_t, L, D):
+    """Zero-padded sequences on the card, lengths in [5, L]; query 0 has
+    length 5 and target 0 length L (symmetricP2 cannot align them)."""
+    lens = [torch.randint(5, L + 1, (n,), generator=gen, device='cuda',
+                          dtype=torch.int32) for n in (n_q, n_t)]
+    lens[0][0], lens[1][0] = 5, L
+    seqs = []
+    for n, ln in zip((n_q, n_t), lens):
+        x = torch.randn((n, L, D), generator=gen, device='cuda')
+        x *= (torch.arange(L, device='cuda')[None, :, None]
+              < ln[:, None, None])
+        seqs.append(x)
+    return seqs[0], lens[0], seqs[1], lens[1]
+
+
+def phase_dtw_kernel():
+    """B2 against its twin on the card, for both step patterns at
+    L in {128, 512} and D in {32, 64}, with Q and T off any multiple, and
+    a 16 x 16 subset against the f64 host DP."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    checks, max_abs, max_rel = [], 0., 0.
+    for L in (128, 512):
+        for D in (32, 64):
+            q, ql, t, tl = _dtw_inputs(gen, 37, 53, L, D)
+            for sp in ('symmetricP2', 'symmetric2'):
+                out = dtwk.dtw_matrix(q, ql, t, tl, sp)
+                ref = dtwk.dtw_matrix_reference(q, ql, t, tl, sp)
+                torch.cuda.synchronize()
+                same_inf = bool((out.isinf() == ref.isinf()).all())
+                fin = ref.isfinite()
+                err = (out[fin] - ref[fin]).abs()
+                rel = (err / ref[fin].abs()).max().item()
+                checks.append({'L': L, 'D': D, 'step_pattern': sp,
+                               'pairs': out.numel(),
+                               'infeasible': int((~fin).sum()),
+                               'same_inf': same_inf,
+                               'max_abs_err': err.max().item(),
+                               'max_rel_err': rel})
+                max_abs = max(max_abs, err.max().item())
+                max_rel = max(max_rel, rel)
+                if not (same_inf and torch.allclose(
+                        out[fin], ref[fin], rtol=DTW_TOL, atol=DTW_TOL)):
+                    raise AssertionError('dtw kernel disagrees with its '
+                                         'twin at {}'.format(checks[-1]))
+                if L == 128 and D == 32:  # the host DP: slow, 16 x 16
+                    host = _host_dtw(q[:16], ql[:16], t[:16], tl[:16], sp)
+                    got = out[:16, :16].cpu().numpy()
+                    fin_h = np.isfinite(host)
+                    if not (np.array_equal(np.isinf(got), ~fin_h)
+                            and np.allclose(got[fin_h], host[fin_h],
+                                            rtol=DTW_HOST_RTOL, atol=0)):
+                        raise AssertionError('dtw kernel disagrees with the '
+                                             'f64 host DP ({})'.format(sp))
+                    checks[-1]['host_dp_max_rel_err'] = float(np.max(
+                        np.abs(got[fin_h] - host[fin_h]) / host[fin_h]))
+    emit({'phase': 'kernels', 'kernel': 'dtw', 'checks': checks,
+          'max_abs_err': max_abs, 'max_rel_err': max_rel})
+    return max_abs, max_rel
+
+
+def _host_dtw(q, ql, t, tl, sp):
+    q, t = q.cpu().double().numpy(), t.cpu().double().numpy()
+    ql, tl = ql.tolist(), tl.tolist()
+    return np.array([[dtw_distance(pairwise_l2(q[i, :ql[i]], t[j, :tl[j]]),
+                                   sp) for j in range(len(tl))]
+                     for i in range(len(ql))])
+
+
+def _write_fs_corpus(emb_dir, rng):
+    """One `.emb.pkl` per fs video of the real protocol: rows
+    (frame, (2, 32) f32, {}) over each action's dilated window, noise
+    N(0, 0.3) with +3 on the class's axis inside the annotated jump (the
+    signal of bench_pipeline_e2e.make_corpus). Returns the counts."""
+    meta = load_meta_cache('fs')
+    by_video = {}
+    with open(os.path.join(ACTION_DATA_DIR, 'fs', 'all.txt')) as fp:
+        for line in fp:
+            if line.strip():
+                action, label = line.split()
+                video, start, end = action.split(':')
+                by_video.setdefault(video, []).append(
+                    (int(start), int(end), FS_CLASSES.index(label)))
+    n_rows = 0
+    for video, acts in by_video.items():
+        fps = meta[video].fps
+        cls_of = {}
+        for start, end, cls in acts:
+            mid = (start + end) / 2
+            for f in range(max(0, min(start, int(mid - fps * 2.5))),
+                           max(end, int(mid + fps * 0.5))):
+                cls_of.setdefault(f, -1)
+            for f in range(start, end):
+                cls_of[f] = cls
+        frames = np.array(sorted(cls_of))
+        cls = np.array([cls_of[f] for f in frames])
+        emb = rng.normal(0, 0.3, (len(frames), 2, FS_EMB)).astype(np.float32)
+        hit = np.flatnonzero(cls >= 0)
+        emb[hit, :, cls[hit]] += 3.
+        store_embs_pickle(os.path.join(emb_dir, video + '.emb.pkl'),
+                          [(int(f), e, {}) for f, e in zip(frames, emb)])
+        n_rows += len(frames)
+    n_actions = sum(map(len, by_video.values()))
+    n_test = sum(len(a) for v, a in by_video.items()
+                 if v.startswith(FS_TEST_PREFIXES))
+    return {'videos': len(by_video), 'actions': n_actions,
+            'test_actions': n_test, 'rows': n_rows}
+
+
+def _fs_protocol(emb_dir):
+    """The recognize CLI on cuda, as a user runs it: few-shot, full data,
+    retrieval. {run: (result, stats, seconds)}; its printing is kept
+    out of this script's output."""
+    common = dict(emb_dir=emb_dir, dataset='fs', out_dir=None,
+                  algorithm='dtw', norm=False, k=1, hidden_dim=128,
+                  attn=False, target_fps=25, num_epochs=None, val_freq=10,
+                  no_test_flip=False, device='cuda')
+    runs = {}
+    for name, kw in (
+            ('few_shot', dict(num_train_examples=FS_SHOTS,
+                              n_trials=FS_TRIALS, retrieve=False)),
+            ('full', dict(num_train_examples=[-1], n_trials=1,
+                          retrieve=False)),
+            ('retrieval', dict(num_train_examples=FS_HITS, n_trials=1,
+                               retrieve=True))):
+        stats = {}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = recognize_cli.main(**common, **kw, stats=stats)
+        runs[name] = (result, stats, time.perf_counter() - t0)
+    return runs
+
+
+def _sweep_inputs(queries, targets, max_len=128):
+    """What `batch_distances` hands the kernel at the CLI's max_len: host
+    arrays and their copies on the card."""
+    L = min(max_len, max(len(a) for a in list(queries) + list(targets)))
+    host = (*nb.pad_sequences(queries, L), *nb.pad_sequences(targets, L))
+    return host, [torch.from_numpy(x).cuda() for x in host]
+
+
+def phase_recognize(card):
+    emb_dir = os.path.join(WORK, 'fs_embs')
+    os.makedirs(emb_dir)
+    t0 = time.perf_counter()
+    counts = _write_fs_corpus(emb_dir, np.random.default_rng(SEED))
+    corpus_s = time.perf_counter() - t0
+
+    # the main path: counts from 0 just before, read just after
+    dtwk.launches = 0
+    t0 = time.perf_counter()
+    runs = _fs_protocol(emb_dir)
+    protocol_s = time.perf_counter() - t0
+    launches = dtwk.launches
+    indexes = [runs[r][1]['index'] for r in ('few_shot', 'full')]
+    sweeps = sum(1 + (ix._d2 is not None) for ix in indexes) + 1
+    if launches != sweeps:
+        raise AssertionError('dtw kernel launched {} times, expected {} '
+                             '(one per sweep)'.format(launches, sweeps))
+    for ix in indexes:
+        if ix._d2 is not None and not np.isinf(ix.d1).any():
+            raise AssertionError('symmetric2 swept without an infeasible '
+                                 'symmetricP2 pair')
+    accs = {ne: a for r in ('few_shot', 'full') for ne, a in
+            runs[r][0].items()}
+    hits, precs = runs['retrieval'][0]
+    n_queries = runs['retrieval'][1]['dist'].shape[0]
+    if accs[-1][0] < FS_ACC_BAR:
+        raise AssertionError('full-data accuracy {} < {}'.format(
+            accs[-1][0], FS_ACC_BAR))
+    for v in (*[a for t in accs.values() for a in t], *hits.values(),
+              *precs.values()):
+        if not np.isfinite(v):
+            raise AssertionError('non-finite result {}'.format(v))
+
+    # B2 at the d1 sweep's real shape (D = 32, symmetricP2), and its twin
+    index = indexes[1]
+    host, (q, ql, t, tl) = _sweep_inputs(index.test_arrays,
+                                         index.train_arrays)
+    L = host[0].shape[1]
+    ms = cuda_ms(lambda: dtwk.dtw_matrix(q, ql, t, tl), iters=10)
+    _, retrieval_dev = _sweep_inputs(*runs['retrieval'][1]['sweep_inputs'])
+    retrieval_ms = cuda_ms(lambda: dtwk.dtw_matrix(*retrieval_dev),
+                           iters=10)
+    plain_ms = cuda_ms(lambda: dtwk.dtw_matrix_reference(q, ql, t, tl),
+                       iters=10, warmup=1)
+    ref = dtwk.dtw_matrix_reference(q, ql, t, tl).cpu().numpy()
+    fin = np.isfinite(ref)
+    if not (np.array_equal(np.isinf(index.d1), ~fin) and np.allclose(
+            index.d1[fin], ref[fin], rtol=DTW_TOL, atol=DTW_TOL)):
+        raise AssertionError('the main path\'s d1 disagrees with the twin')
+    d1_err = float(np.abs(index.d1[fin] - ref[fin]).max())
+    cells = int(host[1].astype(np.int64).sum()) * int(
+        host[3].astype(np.int64).sum())
+    D = host[0].shape[-1]
+    ops_ms = cells * (2 * D + 8) / F32_FLOPS_PER_S * 1e3
+    moved = sum(x.nbytes for x in host) + 4 * ref.size
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+
+    # the whole protocol again with the twin in the sweep (on the card)
+    nb.dtw_matrix = dtwk.dtw_matrix_reference
+    try:
+        twin = _fs_protocol(emb_dir)
+    finally:
+        nb.dtw_matrix = dtwk.dtw_matrix
+    twin_accs = {ne: a for r in ('few_shot', 'full') for ne, a in
+                 twin[r][0].items()}
+    acc_diff = max(abs(a - b) for ne in accs
+                   for a, b in zip(accs[ne], twin_accs[ne]))
+    hit_diff = max(abs(a[h] - b[h]) for a, b in zip(
+        runs['retrieval'][0], twin['retrieval'][0]) for h in FS_HITS)
+    if acc_diff > 1 / counts['test_actions'] + 1e-9 or \
+            hit_diff > 100 / n_queries + 1e-9:
+        raise AssertionError('the twin-backed protocol differs by more '
+                             'than one action: accuracy {}, hit/prec {}'
+                             .format(acc_diff, hit_diff))
+
+    stats = {r: runs[r][1] for r in runs}
+    emit({'phase': 'recognize', 'card': card, **counts,
+          'corpus_seconds': corpus_s,
+          'test_variants': len(index.test_arrays),
+          'train_variants': len(index.train_arrays), 'padded_len': L,
+          'mean_accuracy': {ne: float(np.mean(a)) for ne, a in accs.items()},
+          'hit_at': hits, 'prec_at': precs,
+          'dtw_launches': launches, 'sweeps': sweeps,
+          'knn_sweep_device_ms': ms, 'knn_sweep_plain_ms': plain_ms,
+          'knn_sweep_pairs': ref.size, 'knn_sweep_cells': cells,
+          'dtw_pairs_per_s': ref.size / ms * 1e3,
+          'dtw_cells_per_s': cells / ms * 1e3,
+          'retrieval_sweep_device_ms': retrieval_ms,
+          'd1_max_abs_err_vs_twin': d1_err,
+          'index_seconds': {r: stats[r]['index_seconds']
+                            for r in ('few_shot', 'full')},
+          'vote_seconds': {**stats['few_shot']['vote_seconds'],
+                           **stats['full']['vote_seconds']},
+          'retrieval_sweep_seconds': stats['retrieval']['sweep_seconds'],
+          'seconds': {r: runs[r][2] for r in runs},
+          'protocol_seconds': protocol_s,
+          'twin_protocol_seconds': sum(twin[r][2] for r in twin),
+          'twin_max_accuracy_diff': acc_diff,
+          'twin_max_hit_prec_diff': hit_diff})
+    return {'ms': ms, 'plain_ms': plain_ms, 'launches': launches,
+            'bound_ms': max(ops_ms, bytes_ms),
+            'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes'}
 
 
 def _write_inputs(rng):
@@ -418,12 +694,18 @@ def main():
     os.makedirs(WORK)
     try:
         phase_build()
-        kernel = phase_kernels()
-        kernel['launches'] = phase_slice(card)
+        preprocess = phase_kernels()
+        dtw_abs, dtw_rel = phase_dtw_kernel()
+        dtw = {'name': 'dtw', 'route': 'cuda',
+               'source': 'vpd_tpu_torch/csrc/dtw.cu',
+               'replaces': 'vpd_tpu/ops/pallas/dtw_kernel.py:53',
+               'max_abs_err': dtw_abs, 'max_rel_err': dtw_rel,
+               **phase_recognize(card), 'library_ms': None}
+        preprocess['launches'] = phase_slice(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card)
-    emit({'kernels': [kernel]})
+    emit({'kernels': [preprocess, dtw]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

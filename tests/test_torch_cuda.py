@@ -6,14 +6,20 @@ This file imports torch and the port only (the GPU host has no JAX, and
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Kernel B1 (`ops/preprocess`) is held against its plain twin on the card
-at atol 0.02 (bf16 rounding), and its launch counter is checked.
+at atol 0.02 (bf16 rounding). Kernel B2 (`ops/dtw_kernel`) is held
+against its twin at rtol = atol = 1e-3 with the same +inf pattern (the
+twin's matmul-form cost cancels for near-identical rows, the kernel sums
+(q - t)^2), and against the f64 host DP at rtol 5e-3. Launch counters and
+the range checks are tested too.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vpd_tpu_torch.ops import dtw_kernel as tdtw
 from vpd_tpu_torch.ops import preprocess as tpre
+from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
 
 MEAN = (0.45, 0.47, 0.46)
 STD = (0.13, 0.12, 0.12)
@@ -65,3 +71,94 @@ def test_preprocess_kernel_rejects_other_output_types(cuda_device):
     with pytest.raises(ValueError, match='bfloat16'):
         tpre.preprocess_orig_and_flip(rgb, None, MEAN, STD,
                                       out_dtype=torch.float32)
+
+
+# --- kernel B2: all-pairs DTW ----------------------------------------------
+
+def _dtw_inputs(rng, n_q, n_t, L, D, lo=5):
+    """Zero-padded sequences with random lengths in [lo, L]; the first
+    query is short against a long first target (slope-infeasible under
+    symmetricP2)."""
+    ql = rng.integers(lo, L + 1, n_q).astype(np.int32)
+    tl = rng.integers(lo, L + 1, n_t).astype(np.int32)
+    ql[0], tl[0] = min(lo, L), L
+    q = np.zeros((n_q, L, D), np.float32)
+    t = np.zeros((n_t, L, D), np.float32)
+    for i, n in enumerate(ql):
+        q[i, :n] = rng.normal(size=(n, D))
+    for i, n in enumerate(tl):
+        t[i, :n] = rng.normal(size=(n, D))
+    return [torch.from_numpy(x) for x in (q, ql, t, tl)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('step_pattern', ['symmetricP2', 'symmetric2'])
+@pytest.mark.parametrize('L,D', [(32, 32), (128, 32), (128, 128),
+                                 (512, 32), (512, 128)])
+def test_dtw_kernel_matches_twin(cuda_device, step_pattern, L, D):
+    rng = np.random.default_rng(L + D)
+    args = _dtw_inputs(rng, 11, 13, L, D)
+    dev = [a.to(cuda_device) for a in args]
+    before = tdtw.launches
+    out = tdtw.dtw_matrix(*dev, step_pattern=step_pattern)
+    torch.cuda.synchronize()
+    assert tdtw.launches == before + 1
+    ref = tdtw.dtw_matrix_reference(*dev, step_pattern=step_pattern)
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    assert out.shape == (11, 13)
+    np.testing.assert_array_equal(np.isinf(out), np.isinf(ref))
+    if step_pattern == 'symmetricP2':
+        assert np.isinf(out[0, 0])
+    fin = np.isfinite(ref)
+    np.testing.assert_allclose(out[fin], ref[fin], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('step_pattern', ['symmetricP2', 'symmetric2'])
+def test_dtw_kernel_matches_host_dp(cuda_device, step_pattern):
+    """Against the f64 host DP, from a 6 x 9 pair up, at the bar of the
+    JAX kernel's own test (rtol 5e-3)."""
+    rng = np.random.default_rng(7)
+    lens = [(6, 9), (9, 6), (2, 2), (1, 1), (3, 7), (40, 33), (150, 97)]
+    L, D = 160, 16
+    q = np.zeros((len(lens), L, D), np.float32)
+    t = np.zeros((len(lens), L, D), np.float32)
+    seqs = []
+    for i, (n, m) in enumerate(lens):
+        a, b = rng.normal(size=(n, D)), rng.normal(size=(m, D))
+        q[i, :n], t[i, :m] = a, b
+        seqs.append((q[i, :n], t[i, :m]))
+    out = tdtw.dtw_matrix(
+        torch.from_numpy(q).to(cuda_device),
+        torch.tensor([n for n, _ in lens], dtype=torch.int32,
+                     device=cuda_device),
+        torch.from_numpy(t).to(cuda_device),
+        torch.tensor([m for _, m in lens], dtype=torch.int32,
+                     device=cuda_device), step_pattern).cpu().numpy()
+    for i, (a, _) in enumerate(seqs):
+        for j, (_, b) in enumerate(seqs):
+            want = dtw_distance(pairwise_l2(a, b), step_pattern)
+            if np.isinf(want):
+                assert np.isinf(out[i, j]), (i, j)
+            else:
+                np.testing.assert_allclose(out[i, j], want, rtol=5e-3)
+
+
+@pytest.mark.cuda
+def test_dtw_kernel_rejects_out_of_range(cuda_device):
+    def call(L, D, lens=None):
+        x = torch.zeros((2, L, D), device=cuda_device)
+        n = torch.full((2,), L if lens is None else lens, dtype=torch.int32,
+                       device=cuda_device)
+        return tdtw.dtw_matrix(x, n, x, n)
+
+    with pytest.raises(ValueError, match='L = 513'):
+        call(513, 4)
+    with pytest.raises(ValueError, match='D = 129'):
+        call(16, 129)
+    with pytest.raises(ValueError, match='q_lens'):
+        call(16, 4, lens=17)
+    with pytest.raises(ValueError, match='float32'):
+        x = torch.zeros((2, 8, 4), device=cuda_device, dtype=torch.float64)
+        n = torch.full((2,), 8, dtype=torch.int32, device=cuda_device)
+        tdtw.dtw_matrix(x, n, x, n)

@@ -40,6 +40,8 @@ def test_port_and_chip_smoke_import_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert 'vpd_tpu_torch.infer.apply_vpd' in out['modules']
     assert 'vpd_tpu_torch.tools.apply_vpd' in out['modules']
+    for name in ('tasks.recognize', 'tools.recognize', 'ops.dtw_kernel'):
+        assert 'vpd_tpu_torch.' + name in out['modules']
     assert out['loaded'] == []
 
 

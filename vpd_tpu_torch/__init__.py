@@ -5,14 +5,18 @@ counterpart sits at the same relative path. This package imports torch and
 numpy only: never jax, flax or anything of `vpd_tpu` (tests import both
 packages to hold one against the other).
 
-Layer map (the ported slice: student feature extraction):
+Layer map (the ported slices: student feature extraction; DTW
+recognition and retrieval):
   core/      io + `.emb.pkl` interchange, flax-msgpack checkpoints, pipeline
   data/      eval transforms, crop PNG decode, packed raw shards
-  ops/       hand-written CUDA kernels (csrc/) with their plain twins
+  datasets/  dense embedding matrices, action windows and splits
+  ops/       hand-written CUDA kernels (csrc/) with their plain twins; DTW
   models/    ResNet student, FCNet, flax weight mapping
   train/     student modules and the config.json manifest
   infer/     batched embedding extraction (.emb.pkl writers)
+  tasks/     kNN / retrieval over DTW, the few-shot protocol
   tools/     CLI entry points
+  utils/     video metadata
 
 Entry points run on the GPU unless the caller passes `device='cpu'`.
 """

@@ -37,6 +37,9 @@ _SIGNATURES = {
     # stream -> cudaError_t
     'vpd_preprocess_crops': (_I, (_P, _P, _I, _P, _P, _I, _I, _I,
                                   _F, _F, _F, _F, _F, _F, _I, _P)),
+    # q, q_lens, t, t_lens, out, Q, T, L, D, step_pattern, stream
+    # -> cudaError_t
+    'vpd_dtw_matrix': (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 
