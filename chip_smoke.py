@@ -12,8 +12,10 @@ line each; any failure raises and exits non-zero:
   kernels    each kernel against its plain PyTorch twin on the card:
              B1 (preprocess) at the extraction shapes, timed beside its
              bound; B2 (all-pairs DTW) for both step patterns at L in
-             {128, 512}, D in {32, 64}, and a subset against the f64 host
-             DP
+             {128, 512}, D in {32, 64}, at lengths on its tile edges with
+             D in {1, 7, 20, 32, 64, 128}, a subset and identical
+             sequences against the f64 host DP, and its launch's
+             registers, spills and resident warps
   recognize  DTW few-shot recognition and retrieval end to end at the
              full fs protocol (the real all.txt, val ids, few-shot split
              files and cached fps; 1446 actions; synthetic (2, 32)
@@ -22,7 +24,9 @@ line each; any failure raises and exits non-zero:
              B2's launch count checked, the full-data accuracy held at
              >= 0.9, the d1 sweep held against the twin on the card and a
              twin-backed run of the whole protocol; B2 timed at the kNN
-             sweep's real shape beside its bound
+             and retrieval sweeps' real shapes beside their bounds (the
+             tensor-core product or the recurrence, and the earlier
+             one-term float32 form)
   slice      the student extraction path end to end at full width
              (ResNet-34, 32-d, 128x128, batch 512, orig + flip): random-init
              students written with the port's checkpoint writer, raw shards
@@ -74,12 +78,20 @@ BATCH = 512                # EXTRACT_BATCH, the CLI default
 VIDEOS, FRAMES = 2, 600
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 TOL = 0.02                 # bf16 rounding of values in [-4.2, 4.4]
 COS_BAR = 0.999
-# B2 against its twin: the twin's matmul-form cost cancels for
-# near-identical rows, the kernel sums (q - t)^2 directly
+# B2 against its twin: both take the matmul form of the cost (the kernel
+# in 3xTF32), whose float32 rounding differs in order
 DTW_TOL = 1e-3
 DTW_HOST_RTOL = 5e-3       # against the f64 host DP: the JAX kernel's bar
+# identical sequences: the f64 DP gives 0; the matmul form alone would
+# leave ~sqrt(eps32 (|q|^2 + |t|^2)) ~ 5e-3 a cell in float32
+DTW_SAME_ATOL = 1e-5
+# lengths on B2's tile edges: 8 query rows and 16 target columns a tile,
+# 32 lanes, 128-row target chunks
+DTW_EDGE_LENS = (1, 2, 3, 15, 16, 17, 127, 128, 129, 255, 256, 257, 511,
+                 512)
 FS_EMB = 32                # the student's width: (2, 32) rows, orig + flip
 FS_SHOTS, FS_TRIALS = [4, 16, 64], 10
 FS_HITS = [1, 10, 25, 50]
@@ -240,48 +252,98 @@ def _dtw_inputs(gen, n_q, n_t, L, D):
     return seqs[0], lens[0], seqs[1], lens[1]
 
 
+def _edge_inputs(gen, L, D):
+    """Every pair of lengths from DTW_EDGE_LENS up to L, random rows."""
+    lens = torch.tensor([n for n in DTW_EDGE_LENS if n <= L],
+                        dtype=torch.int32, device='cuda')
+    seqs = []
+    for _ in range(2):
+        x = torch.randn((len(lens), L, D), generator=gen, device='cuda')
+        x *= (torch.arange(L, device='cuda')[None, :, None]
+              < lens[:, None, None])
+        seqs.append(x)
+    return seqs[0], lens, seqs[1], lens.clone()
+
+
+def _dtw_vs_twin(q, ql, t, tl, sp, case):
+    """B2 against its twin on the card: the same +inf pattern and
+    rtol = atol = DTW_TOL. The check's record."""
+    out = dtwk.dtw_matrix(q, ql, t, tl, sp)
+    ref = dtwk.dtw_matrix_reference(q, ql, t, tl, sp)
+    torch.cuda.synchronize()
+    same_inf = bool((out.isinf() == ref.isinf()).all())
+    fin = ref.isfinite()
+    err = (out[fin] - ref[fin]).abs()
+    check = {**case, 'step_pattern': sp, 'pairs': out.numel(),
+             'infeasible': int((~fin).sum()), 'same_inf': same_inf,
+             'max_abs_err': err.max().item(),
+             'max_rel_err': (err / ref[fin].abs()).max().item()}
+    if not (same_inf and torch.allclose(out[fin], ref[fin], rtol=DTW_TOL,
+                                        atol=DTW_TOL)):
+        raise AssertionError('dtw kernel disagrees with its twin at '
+                             '{}'.format(check))
+    return out, check
+
+
 def phase_dtw_kernel():
-    """B2 against its twin on the card, for both step patterns at
-    L in {128, 512} and D in {32, 64}, with Q and T off any multiple, and
-    a 16 x 16 subset against the f64 host DP."""
+    """B2 against its twin on the card, for both step patterns: L in
+    {128, 512} and D in {32, 64} with Q and T off any multiple, lengths on
+    the tile edges at D in {1, 7, 20, 32, 64, 128}; a 16 x 16 subset and
+    identical sequences against the f64 host DP."""
     gen = torch.Generator(device='cuda').manual_seed(SEED)
-    checks, max_abs, max_rel = [], 0., 0.
-    for L in (128, 512):
-        for D in (32, 64):
-            q, ql, t, tl = _dtw_inputs(gen, 37, 53, L, D)
-            for sp in ('symmetricP2', 'symmetric2'):
-                out = dtwk.dtw_matrix(q, ql, t, tl, sp)
-                ref = dtwk.dtw_matrix_reference(q, ql, t, tl, sp)
-                torch.cuda.synchronize()
-                same_inf = bool((out.isinf() == ref.isinf()).all())
-                fin = ref.isfinite()
-                err = (out[fin] - ref[fin]).abs()
-                rel = (err / ref[fin].abs()).max().item()
-                checks.append({'L': L, 'D': D, 'step_pattern': sp,
-                               'pairs': out.numel(),
-                               'infeasible': int((~fin).sum()),
-                               'same_inf': same_inf,
-                               'max_abs_err': err.max().item(),
-                               'max_rel_err': rel})
-                max_abs = max(max_abs, err.max().item())
-                max_rel = max(max_rel, rel)
-                if not (same_inf and torch.allclose(
-                        out[fin], ref[fin], rtol=DTW_TOL, atol=DTW_TOL)):
-                    raise AssertionError('dtw kernel disagrees with its '
-                                         'twin at {}'.format(checks[-1]))
-                if L == 128 and D == 32:  # the host DP: slow, 16 x 16
-                    host = _host_dtw(q[:16], ql[:16], t[:16], tl[:16], sp)
-                    got = out[:16, :16].cpu().numpy()
-                    fin_h = np.isfinite(host)
-                    if not (np.array_equal(np.isinf(got), ~fin_h)
-                            and np.allclose(got[fin_h], host[fin_h],
-                                            rtol=DTW_HOST_RTOL, atol=0)):
-                        raise AssertionError('dtw kernel disagrees with the '
-                                             'f64 host DP ({})'.format(sp))
-                    checks[-1]['host_dp_max_rel_err'] = float(np.max(
-                        np.abs(got[fin_h] - host[fin_h]) / host[fin_h]))
+    checks = []
+    cases = [(L, D, False) for L in (128, 512) for D in (32, 64)]
+    cases += [(128, D, True) for D in (1, 7, 20, 32, 64, 128)]
+    cases += [(512, 20, True)]
+    for L, D, edge in cases:
+        q, ql, t, tl = (_edge_inputs(gen, L, D) if edge
+                        else _dtw_inputs(gen, 37, 53, L, D))
+        for sp in ('symmetricP2', 'symmetric2'):
+            out, check = _dtw_vs_twin(q, ql, t, tl, sp,
+                                      {'L': L, 'D': D, 'edge_lens': edge})
+            checks.append(check)
+            if L == 128 and D == 32 and not edge:  # host DP: slow, 16 x 16
+                host = _host_dtw(q[:16], ql[:16], t[:16], tl[:16], sp)
+                got = out[:16, :16].cpu().numpy()
+                fin_h = np.isfinite(host)
+                if not (np.array_equal(np.isinf(got), ~fin_h)
+                        and np.allclose(got[fin_h], host[fin_h],
+                                        rtol=DTW_HOST_RTOL, atol=0)):
+                    raise AssertionError('dtw kernel disagrees with the '
+                                         'f64 host DP ({})'.format(sp))
+                check['host_dp_max_rel_err'] = float(np.max(
+                    np.abs(got[fin_h] - host[fin_h]) / host[fin_h]))
+
+    # identical sequences (the retrieval diagonal): q = t, lengths 75-100
+    L, D = 100, 64
+    lens = torch.randint(75, L + 1, (10,), generator=gen, device='cuda',
+                         dtype=torch.int32)
+    x = torch.randn((10, L, D), generator=gen, device='cuda')
+    x *= torch.arange(L, device='cuda')[None, :, None] < lens[:, None, None]
+    for sp in ('symmetricP2', 'symmetric2'):
+        got = dtwk.dtw_matrix(x, lens, x, lens, sp).cpu().numpy()
+        host = _host_dtw(x, lens, x, lens, sp)
+        diag = float(np.abs(np.diag(got) - np.diag(host)).max())
+        off = ~np.eye(len(host), dtype=bool) & np.isfinite(host)
+        if not (diag <= DTW_SAME_ATOL
+                and np.array_equal(np.isinf(got), np.isinf(host))
+                and np.allclose(got[off], host[off], rtol=DTW_HOST_RTOL,
+                                atol=0)):
+            raise AssertionError('dtw kernel on identical sequences: '
+                                 'diagonal off by {} ({})'.format(diag, sp))
+        checks.append({'L': L, 'D': D, 'identical': True,
+                       'step_pattern': sp, 'pairs': got.size,
+                       'diagonal_max_abs_err_vs_host_dp': diag,
+                       'host_dp_max_rel_err': float(np.max(
+                           np.abs(got[off] - host[off]) / host[off]))})
+    info = {'L{}_D{}_{}'.format(L, D, sp): dtwk.kernel_info(L, D, sp)
+            for L, D in ((128, 32), (128, 64), (512, 64))
+            for sp in ('symmetricP2', 'symmetric2')}
+    max_abs = max(c['max_abs_err'] for c in checks if 'max_abs_err' in c)
+    max_rel = max(c['max_rel_err'] for c in checks if 'max_rel_err' in c)
     emit({'phase': 'kernels', 'kernel': 'dtw', 'checks': checks,
-          'max_abs_err': max_abs, 'max_rel_err': max_rel})
+          'max_abs_err': max_abs, 'max_rel_err': max_rel,
+          'kernel_info': info})
     return max_abs, max_rel
 
 
@@ -365,6 +427,29 @@ def _sweep_inputs(queries, targets, max_len=128):
     return host, [torch.from_numpy(x).cuda() for x in host]
 
 
+def _dtw_bound(host):
+    """B2's least time for one sweep, from the inputs' true lengths: the
+    larger of the bytes (inputs read once, the (Q, T) output written once)
+    and the operations, themselves the larger of the cost product (2D
+    flops a cell, x 3 for 3xTF32, at the TF32 tensor-core rate) and the
+    recurrence (8 float32 operations a cell). `f32_bound_ms` is the one-term
+    form used before the tensor-core kernel, (2D + 8) operations a cell at
+    the float32 rate, kept so that the rows stay comparable."""
+    cells = int(host[1].astype(np.int64).sum()) * int(
+        host[3].astype(np.int64).sum())
+    D = host[0].shape[-1]
+    moved = sum(x.nbytes for x in host) + 4 * len(host[1]) * len(host[3])
+    product_ms = cells * 2 * D * 3 / TF32_FLOPS_PER_S * 1e3
+    recurrence_ms = cells * 8 / F32_FLOPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(product_ms, recurrence_ms)
+    return {'cells': cells, 'D': D, 'bytes_ms': bytes_ms,
+            'product_ms': product_ms, 'recurrence_ms': recurrence_ms,
+            'bound_ms': max(ops_ms, bytes_ms),
+            'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
+            'f32_bound_ms': cells * (2 * D + 8) / F32_FLOPS_PER_S * 1e3}
+
+
 def phase_recognize(card):
     emb_dir = os.path.join(WORK, 'fs_embs')
     os.makedirs(emb_dir)
@@ -405,7 +490,8 @@ def phase_recognize(card):
                                          index.train_arrays)
     L = host[0].shape[1]
     ms = cuda_ms(lambda: dtwk.dtw_matrix(q, ql, t, tl), iters=10)
-    _, retrieval_dev = _sweep_inputs(*runs['retrieval'][1]['sweep_inputs'])
+    retrieval_host, retrieval_dev = _sweep_inputs(
+        *runs['retrieval'][1]['sweep_inputs'])
     retrieval_ms = cuda_ms(lambda: dtwk.dtw_matrix(*retrieval_dev),
                            iters=10)
     plain_ms = cuda_ms(lambda: dtwk.dtw_matrix_reference(q, ql, t, tl),
@@ -416,12 +502,9 @@ def phase_recognize(card):
             index.d1[fin], ref[fin], rtol=DTW_TOL, atol=DTW_TOL)):
         raise AssertionError('the main path\'s d1 disagrees with the twin')
     d1_err = float(np.abs(index.d1[fin] - ref[fin]).max())
-    cells = int(host[1].astype(np.int64).sum()) * int(
-        host[3].astype(np.int64).sum())
-    D = host[0].shape[-1]
-    ops_ms = cells * (2 * D + 8) / F32_FLOPS_PER_S * 1e3
-    moved = sum(x.nbytes for x in host) + 4 * ref.size
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    knn_bound = _dtw_bound(host)
+    retrieval_bound = _dtw_bound(retrieval_host)
+    cells = knn_bound['cells']
 
     # the whole protocol again with the twin in the sweep (on the card)
     nb.dtw_matrix = dtwk.dtw_matrix_reference
@@ -453,7 +536,16 @@ def phase_recognize(card):
           'knn_sweep_pairs': ref.size, 'knn_sweep_cells': cells,
           'dtw_pairs_per_s': ref.size / ms * 1e3,
           'dtw_cells_per_s': cells / ms * 1e3,
+          'knn_sweep_bound': knn_bound,
           'retrieval_sweep_device_ms': retrieval_ms,
+          'retrieval_sweep_pairs': len(retrieval_host[1]) * len(
+              retrieval_host[3]),
+          'retrieval_padded_len': retrieval_host[0].shape[1],
+          'retrieval_sweep_bound': retrieval_bound,
+          'dtw_kernel_info': {
+              'knn': dtwk.kernel_info(L, knn_bound['D']),
+              'retrieval': dtwk.kernel_info(retrieval_host[0].shape[1],
+                                            retrieval_bound['D'])},
           'd1_max_abs_err_vs_twin': d1_err,
           'index_seconds': {r: stats[r]['index_seconds']
                             for r in ('few_shot', 'full')},
@@ -466,8 +558,11 @@ def phase_recognize(card):
           'twin_max_accuracy_diff': acc_diff,
           'twin_max_hit_prec_diff': hit_diff})
     return {'ms': ms, 'plain_ms': plain_ms, 'launches': launches,
-            'bound_ms': max(ops_ms, bytes_ms),
-            'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes'}
+            'bound_ms': knn_bound['bound_ms'],
+            'bound_by': knn_bound['bound_by'],
+            'f32_bound_ms': knn_bound['f32_bound_ms'],
+            'retrieval_ms': retrieval_ms,
+            'retrieval_bound_ms': retrieval_bound['bound_ms']}
 
 
 def _write_inputs(rng):

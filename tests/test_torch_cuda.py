@@ -7,10 +7,12 @@ This file imports torch and the port only (the GPU host has no JAX, and
 
 Kernel B1 (`ops/preprocess`) is held against its plain twin on the card
 at atol 0.02 (bf16 rounding). Kernel B2 (`ops/dtw_kernel`) is held
-against its twin at rtol = atol = 1e-3 with the same +inf pattern (the
-twin's matmul-form cost cancels for near-identical rows, the kernel sums
-(q - t)^2), and against the f64 host DP at rtol 5e-3. Launch counters and
-the range checks are tested too.
+against its twin at rtol = atol = 1e-3 with the same +inf pattern (both
+use the matmul form of the cost, the kernel in 3xTF32 on the tensor
+cores), at lengths on its tile edges and at D off a multiple of 8, and
+against the f64 host DP at rtol 5e-3 (identical sequences at 1e-5
+absolute). Launch counters, the range checks and the launch's resources
+are tested too.
 """
 
 import numpy as np
@@ -91,13 +93,33 @@ def _dtw_inputs(rng, n_q, n_t, L, D, lo=5):
     return [torch.from_numpy(x) for x in (q, ql, t, tl)]
 
 
+# lengths on the kernel's tile edges: 8 query rows and 16 target columns
+# per tensor-core tile, 32 lanes, 128-row target chunks
+EDGE_LENS = (1, 2, 3, 15, 16, 17, 127, 128, 129, 255, 256, 257, 511, 512)
+
+
+def _edge_inputs(rng, L, D):
+    """Every pair of lengths from EDGE_LENS up to L, random rows."""
+    lens = np.array([n for n in EDGE_LENS if n <= L], np.int32)
+    x = np.zeros((len(lens), L, D), np.float32)
+    for i, n in enumerate(lens):
+        x[i, :n] = rng.normal(size=(n, D))
+    y = np.zeros_like(x)
+    for i, n in enumerate(lens):
+        y[i, :n] = rng.normal(size=(n, D))
+    return [torch.from_numpy(a) for a in (x, lens, y, lens.copy())]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('step_pattern', ['symmetricP2', 'symmetric2'])
-@pytest.mark.parametrize('L,D', [(32, 32), (128, 32), (128, 128),
-                                 (512, 32), (512, 128)])
-def test_dtw_kernel_matches_twin(cuda_device, step_pattern, L, D):
+@pytest.mark.parametrize('L,D,edge', [
+    (32, 32, False), (128, 32, False), (128, 128, False), (512, 32, False),
+    (512, 128, False), (128, 1, True), (128, 7, True), (128, 20, True),
+    (128, 32, True), (128, 64, True), (128, 128, True), (512, 20, True)])
+def test_dtw_kernel_matches_twin(cuda_device, step_pattern, L, D, edge):
     rng = np.random.default_rng(L + D)
-    args = _dtw_inputs(rng, 11, 13, L, D)
+    args = (_edge_inputs(rng, L, D) if edge
+            else _dtw_inputs(rng, 11, 13, L, D))
     dev = [a.to(cuda_device) for a in args]
     before = tdtw.launches
     out = tdtw.dtw_matrix(*dev, step_pattern=step_pattern)
@@ -105,9 +127,9 @@ def test_dtw_kernel_matches_twin(cuda_device, step_pattern, L, D):
     assert tdtw.launches == before + 1
     ref = tdtw.dtw_matrix_reference(*dev, step_pattern=step_pattern)
     out, ref = out.cpu().numpy(), ref.cpu().numpy()
-    assert out.shape == (11, 13)
+    assert out.shape == (len(args[1]), len(args[3]))
     np.testing.assert_array_equal(np.isinf(out), np.isinf(ref))
-    if step_pattern == 'symmetricP2':
+    if step_pattern == 'symmetricP2' and not edge:
         assert np.isinf(out[0, 0])
     fin = np.isfinite(ref)
     np.testing.assert_allclose(out[fin], ref[fin], rtol=1e-3, atol=1e-3)
@@ -162,3 +184,43 @@ def test_dtw_kernel_rejects_out_of_range(cuda_device):
         x = torch.zeros((2, 8, 4), device=cuda_device, dtype=torch.float64)
         n = torch.full((2,), 8, dtype=torch.int32, device=cuda_device)
         tdtw.dtw_matrix(x, n, x, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('step_pattern', ['symmetricP2', 'symmetric2'])
+def test_dtw_kernel_identical_sequences(cuda_device, step_pattern):
+    """q = t, as on the retrieval sweep's diagonal: lengths 75-100, D = 64,
+    against the f64 host DP, whose diagonal is 0. In float32 the matmul
+    form of the cost cancels there and would leave about
+    sqrt(eps32 (|q|^2 + |t|^2)) ~ 5e-3 a cell; the kernel sums such cells
+    as (q - t)^2, so the diagonal is held at 1e-5 absolute (the f64 DP's
+    own residual is below 1e-6). Off the diagonal, rtol 5e-3."""
+    rng = np.random.default_rng(3)
+    L, D = 100, 64
+    lens = rng.integers(75, L + 1, 10).astype(np.int32)
+    x = np.zeros((len(lens), L, D), np.float32)
+    for i, n in enumerate(lens):
+        x[i, :n] = rng.normal(size=(n, D))
+    xd = torch.from_numpy(x).to(cuda_device)
+    ld = torch.from_numpy(lens).to(cuda_device)
+    out = tdtw.dtw_matrix(xd, ld, xd, ld, step_pattern).cpu().numpy()
+    for i, n in enumerate(lens):
+        for j, m in enumerate(lens):
+            want = dtw_distance(pairwise_l2(x[i, :n], x[j, :m]),
+                                step_pattern)
+            if i == j:
+                assert abs(out[i, j] - want) <= 1e-5, (i, out[i, j], want)
+            elif np.isinf(want):
+                assert np.isinf(out[i, j]), (i, j)
+            else:
+                np.testing.assert_allclose(out[i, j], want, rtol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L,D', [(128, 32), (128, 64), (512, 128)])
+def test_dtw_kernel_info(cuda_device, L, D):
+    """The launch's resources: no register spills, and at least 16 warps
+    resident per SM at the main path's shapes (L <= 128)."""
+    info = tdtw.kernel_info(L, D)
+    assert info['local_bytes'] == 0, info
+    assert info['resident_warps_per_sm'] >= (16 if L <= 128 else 1), info

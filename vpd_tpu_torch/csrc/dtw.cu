@@ -6,21 +6,31 @@
 // ||q_i - t_j|| and +inf where the end cell is unreachable, for every
 // (query, target) pair; it equals the host DP of ops/dtw.py.
 //
-// What bounds it: operations. Each DP cell inside the lengths costs 2D
-// float32 operations for its local cost (subtract, fused multiply-add per
-// dimension) plus about 8 for the recurrence and the square root; inputs
-// and outputs are a few MB. So the least time is ops / 67 TFLOP/s.
+// What bounds it: operations, in two parts. The local costs are a matrix
+// product, ||q||^2 + ||t||^2 - 2 q.t, as the JAX kernel computes them: 2D
+// flops a cell, done on the tensor cores in TF32 three times over for
+// float32 accuracy (495 TFLOP/s dense). The recurrence is about 8 float32
+// operations a cell outside the tensor cores (67 TFLOP/s). Inputs and
+// outputs are a few MB. The least time is the larger of the two parts.
 //
 // Design (one target per block, one query per warp):
-// * The block stages its target, up to CW rows of D floats at a time, in
-//   shared memory with an odd row stride, so that 32 lanes reading 32
-//   different rows hit 32 different banks.
-// * A warp walks its pair's DP rows in tiles of RB rows. For a tile it
-//   copies the RB query rows to shared memory, and each lane computes the
-//   local costs of RB rows x its columns (j = lane + 32 g) in registers:
-//   every target value read is used RB times and every query value (a
-//   broadcast read) CG times. Costs are the direct sum of (q - t)^2, more
-//   exact than the matmul form of the JAX code.
+// * The block stages its target, up to CW rows at a time, in shared memory
+//   already cut into TF32 hi and lo parts and laid out in the order of the
+//   mma A fragments (16 target rows x 8 dimensions, D padded with zeros to
+//   a multiple of 8): a lane fetches its 4 hi and 4 lo values of one
+//   fragment with two 16-byte loads, free of bank conflicts. The squared
+//   norms of the staged rows are computed once, beside them.
+// * A warp walks its pair's DP rows in tiles of RB = 8 rows. The query's 8
+//   rows are the mma's N: each lane loads its B fragments straight from
+//   memory, splits them into hi and lo, and the group of 4 lanes that owns
+//   a row sums its squared norm with two shuffles. Each 16 x 8 x 8 step is
+//   three mma.sync.m16n8k8 TF32 (lo.hi + hi.lo + hi.hi, 3xTF32), and only
+//   ceil(m/16)*16 columns x 8 rows are covered.
+// * The epilogue forms ||q||^2 + ||t||^2 - 2 q.t, clamps at 0 and takes the
+//   square root, the twin's own arithmetic. Where a row nearly equals a
+//   column (the squared cost below 1/64 of ||q||^2 + ||t||^2, where the
+//   matmul form cancels), the cell is summed again as (q - t)^2 in float32,
+//   so identical rows cost exactly 0.
 // * The costs go to a per-warp ring of RB + 2 rows and the DP values to a
 //   ring of 4 rows, both in shared memory: symmetricP2 reads rows i-1..i-3
 //   and cost rows i-1, i-2 at column offsets of up to 3.
@@ -36,74 +46,158 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <climits>
 
 namespace {
 
-constexpr int RB = 8;          // DP rows per cost tile
+constexpr int RB = 8;          // DP rows per cost tile: the mma's N
 constexpr int CW = 128;        // target rows staged per chunk
-constexpr int CG = CW / 32;    // column groups per lane in a chunk
 constexpr int MAX_WARPS = 8;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_BUDGET = 200 * 1024;  // of the 227 KB a block may use
+constexpr float FIX_FRAC = 1.f / 64;  // below this share, sum (q - t)^2
 
 struct Layout {
   int lp;         // L rounded up to 32: a DP row in shared memory
   int cw;         // rows of the staged target chunk
-  int ts_stride;  // odd stride of a staged target row
+  int ks;         // k-steps of 8 dimensions: ceil(D / 8)
+  int cs;         // stride of a cost row, lp + 4: conflict-free stores
+  int ring;       // cost rows per warp
   int warp_floats;
 
   __host__ __device__ Layout(int L, int D) {
     lp = (L + 31) / 32 * 32;
     cw = lp < CW ? lp : CW;
-    ts_stride = D | 1;
-    warp_floats = RB * D + (RB + 2) * lp + 4 * lp;
+    ks = (D + 7) / 8;
+    cs = lp + 4;
+    ring = RB + 2;
+    warp_floats = ring * cs + 4 * lp;
   }
+  __host__ __device__ int frag_floats() const { return cw * ks * 16; }
   __host__ __device__ size_t floats(int warps) const {
-    return (size_t)cw * ts_stride + (size_t)warps * warp_floats;
+    return (size_t)frag_floats() + cw + (size_t)warps * warp_floats;
   }
 };
 
-// Local costs of rows i0 .. i0 + rows - 1 against target rows c0 .. (the
-// chunk in ts), into the cost ring.
-__device__ __forceinline__ void cost_tile(const float* qs, const float* ts,
-                                          float* cost, int i0, int rows,
-                                          int c0, int m, int D,
-                                          const Layout& lay, int lane) {
-  const int chunk = min(lay.cw, m - c0);
-  const int groups = (chunk + 31) / 32;
-  float acc[RB][CG];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int g = 0; g < CG; ++g) acc[r][g] = 0.f;
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
 
+// c += a b for a 16 x 8 TF32 tile a (rows: target columns), an 8 x 8 tile
+// b (columns: query rows), float32 c.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The whole block: target rows c0 .. c0 + cw - 1 (zeros past m) into the
+// A-fragment order, hi and lo parts, and their squared norms into tn.
+__device__ void stage_target(const float* tp, float* frag, float* tn, int c0,
+                             int m, int D, const Layout& lay) {
+  const int rows = min(lay.cw, m - c0);
+  const int d8 = lay.ks * 8;
+  for (int e = threadIdx.x; e < lay.cw * d8; e += blockDim.x) {
+    const int r = e / d8, k = e - r * d8;
+    const float v = r < rows && k < D ? tp[(size_t)(c0 + r) * D + k] : 0.f;
+    const uint32_t hi = to_tf32(v);
+    const uint32_t lo = to_tf32(v - __uint_as_float(hi));
+    // fragment (r / 16, k / 8); lane (r % 8) * 4 + k % 4; register
+    // (r % 16) / 8 + 2 ((k % 8) / 4)
+    const int lane = (r & 7) * 4 + (k & 3);
+    const int reg = ((r >> 3) & 1) + 2 * ((k >> 2) & 1);
+    float* f = frag + (((r >> 4) * lay.ks + (k >> 3)) * 32 + lane) * 8;
+    f[reg] = __uint_as_float(hi);
+    f[4 + reg] = __uint_as_float(lo);
+  }
+  for (int r = threadIdx.x; r < lay.cw; r += blockDim.x) {
+    float s = 0.f;
+    if (r < rows) {
+      const float* row = tp + (size_t)(c0 + r) * D;
+      for (int k = 0; k < D; ++k) s = fmaf(row[k], row[k], s);
+    }
+    tn[r] = s;
+  }
+}
+
+__device__ __forceinline__ float direct_sq(const float* a, const float* b,
+                                           int D) {
+  float s = 0.f;
   for (int k = 0; k < D; ++k) {
-    float qv[RB];
+    const float d = a[k] - b[k];
+    s = fmaf(d, d, s);
+  }
+  return s;
+}
+
+// Local costs of query rows i0 .. i0 + RB - 1 (of n) against the staged
+// target rows c0 .. c0 + mc - 1, into cost rows (i0 + r) % ring. KS bounds
+// lay.ks at compile time, so that the query fragments stay in registers.
+template <int KS>
+__device__ __forceinline__ void cost_tile(const float* frag, const float* tn,
+                                          const float* qp, const float* tp,
+                                          float* cost, int i0, int n, int c0,
+                                          int mc, int D, const Layout& lay,
+                                          int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  uint32_t bh[KS][2], bl[KS][2];
+  float qn = 0.f;
+  const bool row_ok = i0 + g < n;
+  const float* qrow = qp + (size_t)(i0 + g) * D;
 #pragma unroll
-    for (int r = 0; r < RB; ++r) qv[r] = qs[r * D + k];
+  for (int s = 0; s < KS; ++s) {
+    if (s < lay.ks) {
 #pragma unroll
-    for (int g = 0; g < CG; ++g) {
-      if (g < groups) {
-        const float tv = ts[(g * 32 + lane) * lay.ts_stride + k];
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float diff = qv[r] - tv;
-          acc[r][g] = fmaf(diff, diff, acc[r][g]);
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int k = s * 8 + h * 4 + t4;
+        const float v = row_ok && k < D ? qrow[k] : 0.f;
+        qn = fmaf(v, v, qn);
+        bh[s][h] = to_tf32(v);
+        bl[s][h] = to_tf32(v - __uint_as_float(bh[s][h]));
       }
     }
   }
+  qn += __shfl_xor_sync(FULL, qn, 1);
+  qn += __shfl_xor_sync(FULL, qn, 2);
+  // this lane's cells: query rows 2 t4 and 2 t4 + 1
+  const float qn_r[2] = {__shfl_sync(FULL, qn, 8 * t4),
+                         __shfl_sync(FULL, qn, 8 * t4 + 4)};
+  const float4* frag4 = reinterpret_cast<const float4*>(frag);
+  const int tiles = (mc + 15) / 16;
+  for (int mt = 0; mt < tiles; ++mt) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    if (r < rows) {
-      float* row = cost + ((i0 + r) % (RB + 2)) * lay.lp;
-#pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        const int j = g * 32 + lane;
-        if (g < groups && j < chunk) row[c0 + j] = sqrtf(acc[r][g]);
+    for (int s = 0; s < KS; ++s) {
+      if (s < lay.ks) {
+        const float4* f = frag4 + ((mt * lay.ks + s) * 32 + lane) * 2;
+        const float4 h = f[0], l = f[1];
+        const uint32_t h0 = __float_as_uint(h.x), h1 = __float_as_uint(h.y),
+                       h2 = __float_as_uint(h.z), h3 = __float_as_uint(h.w);
+        mma_tf32(acc, __float_as_uint(l.x), __float_as_uint(l.y),
+                 __float_as_uint(l.z), __float_as_uint(l.w), bh[s][0],
+                 bh[s][1]);
+        mma_tf32(acc, h0, h1, h2, h3, bl[s][0], bl[s][1]);
+        mma_tf32(acc, h0, h1, h2, h3, bh[s][0], bh[s][1]);
       }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // c_e: column g + 8 (e / 2), row 2 t4 + e % 2
+      const int col = mt * 16 + g + 8 * (e >> 1);
+      const int r = 2 * t4 + (e & 1);
+      const float norms = qn_r[e & 1] + tn[col];
+      float sq = fmaf(-2.f, acc[e], norms);
+      if (sq < FIX_FRAC * norms && i0 + r < n && col < mc)
+        sq = direct_sq(qp + (size_t)(i0 + r) * D,
+                       tp + (size_t)(c0 + col) * D, D);
+      cost[((i0 + r) % lay.ring) * lay.cs + c0 + col] = sqrtf(fmaxf(sq, 0.f));
     }
   }
 }
@@ -111,11 +205,12 @@ __device__ __forceinline__ void cost_tile(const float* qs, const float* ts,
 // One DP row of symmetricP2. Returns g[i][m - 1] in the lane that owns
 // column m - 1 and `last` unchanged in the others.
 __device__ __forceinline__ float row_p2(const float* cost, float* gring,
-                                        int i, int m, int lp, int lane,
-                                        float last) {
-  const float* d = cost + (i % (RB + 2)) * lp;
-  const float* d1 = cost + ((i + RB + 1) % (RB + 2)) * lp;  // row i - 1
-  const float* d2 = cost + ((i + RB) % (RB + 2)) * lp;      // row i - 2
+                                        int i, int m, const Layout& lay,
+                                        int lane, float last) {
+  const int ring = lay.ring, cs = lay.cs, lp = lay.lp;
+  const float* d = cost + (i % ring) * cs;
+  const float* d1 = cost + ((i + ring - 1) % ring) * cs;  // row i - 1
+  const float* d2 = cost + ((i + ring - 2) % ring) * cs;  // row i - 2
   const float* g1 = gring + ((i + 3) & 3) * lp;
   const float* g2 = gring + ((i + 2) & 3) * lp;
   const float* g3 = gring + ((i + 1) & 3) * lp;
@@ -140,11 +235,11 @@ __device__ __forceinline__ float row_p2(const float* cost, float* gring,
 
 // One DP row of symmetric2, by an affine (min,+) scan along the row.
 __device__ __forceinline__ float row_s2(const float* cost, float* gring,
-                                        int i, int m, int lp, int lane,
-                                        float last) {
-  const float* d = cost + (i % (RB + 2)) * lp;
-  const float* g1 = gring + ((i + 3) & 3) * lp;
-  float* out = gring + (i & 3) * lp;
+                                        int i, int m, const Layout& lay,
+                                        int lane, float last) {
+  const float* d = cost + (i % lay.ring) * lay.cs;
+  const float* g1 = gring + ((i + 3) & 3) * lay.lp;
+  float* out = gring + (i & 3) * lay.lp;
   float carry = INFINITY;  // g[i][j0 - 1]
   for (int j0 = 0; j0 < m; j0 += 32) {
     const int j = j0 + lane;
@@ -175,14 +270,13 @@ __device__ __forceinline__ float row_s2(const float* cost, float* gring,
   return last;
 }
 
-template <bool P2>
-__global__ void dtw_kernel(const float* __restrict__ q,
-                           const int* __restrict__ q_lens,
-                           const float* __restrict__ t,
-                           const int* __restrict__ t_lens,
-                           float* __restrict__ out, int Q, int T, int L,
-                           int D, int q_groups) {
-  extern __shared__ float smem[];
+template <int KS, bool P2>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+    dtw_kernel(const float* __restrict__ q, const int* __restrict__ q_lens,
+               const float* __restrict__ t, const int* __restrict__ t_lens,
+               float* __restrict__ out, int Q, int T, int L, int D,
+               int q_groups) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ int n_max_s;
   const Layout lay(L, D);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -196,52 +290,78 @@ __global__ void dtw_kernel(const float* __restrict__ q,
   __syncthreads();
   if (lane == 0) atomicMax(&n_max_s, n);
   __syncthreads();
-  const int n_max = n_max_s;
+  const int chunks = (m + lay.cw - 1) / lay.cw;
+  // with one chunk no block barrier is left: each warp stops at its n
+  const int i_end = chunks > 1 ? n_max_s : n;
 
-  float* ts = smem;
-  float* qs = smem + (size_t)lay.cw * lay.ts_stride +
-              (size_t)warp * lay.warp_floats;
-  float* cost = qs + RB * D;
-  float* gring = cost + (RB + 2) * lay.lp;
+  float* frag = smem;
+  float* tn = frag + lay.frag_floats();
+  float* cost = tn + lay.cw + (size_t)warp * lay.warp_floats;
+  float* gring = cost + lay.ring * lay.cs;
   const float* tp = t + (size_t)tj * L * D;
   const float* qp = q + (size_t)(qi < Q ? qi : 0) * L * D;
-  const int chunks = (m + lay.cw - 1) / lay.cw;
 
-  auto stage = [&](int c0) {  // the whole block: target rows c0 ..
-    const int rows = min(lay.cw, m - c0);
-    for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
-      const int r = e / D;
-      ts[r * lay.ts_stride + (e - r * D)] = tp[(size_t)c0 * D + e];
-    }
-  };
-  if (chunks == 1) stage(0);
+  if (chunks == 1) stage_target(tp, frag, tn, 0, m, D, lay);
   __syncthreads();
 
   float last = INFINITY;
-  for (int i0 = 0; i0 < n_max; i0 += RB) {  // the same count in all warps
-    const bool active = i0 < n;
-    const int rows = active ? min(RB, n - i0) : 0;
-    for (int e = lane; e < rows * D; e += 32)
-      qs[e] = qp[(size_t)i0 * D + e];
-    __syncwarp();
+  for (int i0 = 0; i0 < i_end; i0 += RB) {  // the same count in all warps
+    const bool active = i0 < n;              // when chunks > 1
     for (int c = 0; c < chunks; ++c) {
+      const int c0 = c * lay.cw;
       if (chunks > 1) {
         __syncthreads();
-        stage(c * lay.cw);
+        stage_target(tp, frag, tn, c0, m, D, lay);
         __syncthreads();
       }
-      if (active) cost_tile(qs, ts, cost, i0, rows, c * lay.cw, m, D, lay,
-                            lane);
+      if (active)
+        cost_tile<KS>(frag, tn, qp, tp, cost, i0, n, c0,
+                      min(lay.cw, m - c0), D, lay, lane);
     }
     __syncwarp();
-    for (int i = i0; i < i0 + rows; ++i) {  // the last is row n - 1
-      last = P2 ? row_p2(cost, gring, i, m, lay.lp, lane, last)
-                : row_s2(cost, gring, i, m, lay.lp, lane, last);
-      __syncwarp();
+    if (active) {
+      for (int i = i0; i < min(i0 + RB, n); ++i) {  // the last is row n - 1
+        last = P2 ? row_p2(cost, gring, i, m, lay, lane, last)
+                  : row_s2(cost, gring, i, m, lay, lane, last);
+        __syncwarp();
+      }
     }
   }
   if (qi < Q && lane == ((m - 1) & 31))
     out[(size_t)qi * T + tj] = last / (float)(n + m);
+}
+
+using KernelFn = void (*)(const float*, const int*, const float*,
+                          const int*, float*, int, int, int, int, int);
+
+// The kernel, block size and shared memory for (L, D, step pattern).
+struct Launch {
+  KernelFn kernel;
+  int warps;
+  size_t bytes;
+};
+
+template <int KS>
+KernelFn pick(int step_pattern) {
+  return step_pattern == 1 ? dtw_kernel<KS, true> : dtw_kernel<KS, false>;
+}
+
+cudaError_t plan(int L, int D, int step_pattern, Launch* out) {
+  if (L <= 0 || D <= 0 || D > 128 || (step_pattern != 0 && step_pattern != 1))
+    return cudaErrorInvalidValue;
+  const Layout lay(L, D);
+  int warps = MAX_WARPS;
+  while (warps > 1 && lay.floats(warps) * sizeof(float) > SMEM_BUDGET)
+    warps /= 2;
+  out->warps = warps;
+  out->bytes = lay.floats(warps) * sizeof(float);
+  if (out->bytes > SMEM_BUDGET) return cudaErrorInvalidValue;
+  out->kernel = D <= 32 ? pick<4>(step_pattern)
+                : D <= 64 ? pick<8>(step_pattern)
+                          : pick<16>(step_pattern);
+  return cudaFuncSetAttribute(out->kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)out->bytes);
 }
 
 }  // namespace
@@ -255,22 +375,36 @@ extern "C" int vpd_dtw_matrix(const float* q, const int* q_lens,
                               int Q, int T, int L, int D, int step_pattern,
                               cudaStream_t stream) {
   if (Q <= 0 || T <= 0) return cudaSuccess;
-  if (L <= 0 || D <= 0 || (step_pattern != 0 && step_pattern != 1))
-    return cudaErrorInvalidValue;
-  const Layout lay(L, D);
-  int warps = MAX_WARPS;
-  while (warps > 1 && lay.floats(warps) * sizeof(float) > SMEM_BUDGET)
-    warps /= 2;
-  const size_t bytes = lay.floats(warps) * sizeof(float);
-  if (bytes > SMEM_BUDGET) return cudaErrorInvalidValue;
-  const int q_groups = (Q + warps - 1) / warps;
-  if ((long long)T * q_groups > INT_MAX) return cudaErrorInvalidValue;
-
-  auto kernel = step_pattern == 1 ? dtw_kernel<true> : dtw_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  Launch lc;
+  cudaError_t err = plan(L, D, step_pattern, &lc);
   if (err != cudaSuccess) return err;
-  kernel<<<T * q_groups, 32 * warps, bytes, stream>>>(
+  const int q_groups = (Q + lc.warps - 1) / lc.warps;
+  if ((long long)T * q_groups > INT_MAX) return cudaErrorInvalidValue;
+  lc.kernel<<<T * q_groups, 32 * lc.warps, lc.bytes, stream>>>(
       q, q_lens, t, t_lens, out, Q, T, L, D, q_groups);
   return cudaGetLastError();
+}
+
+// What the launch for (L, D, step_pattern) uses, into info[5]: registers
+// per thread, local memory per thread in bytes (0 unless registers
+// spill), dynamic shared memory per block in bytes, warps per block and
+// warps resident per SM. Returns a cudaError_t.
+extern "C" int vpd_dtw_kernel_info(int L, int D, int step_pattern,
+                                   int* info) {
+  Launch lc;
+  cudaError_t err = plan(L, D, step_pattern, &lc);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, lc.kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, lc.kernel, 32 * lc.warps, lc.bytes);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)lc.bytes;
+  info[3] = lc.warps;
+  info[4] = blocks * lc.warps;
+  return cudaSuccess;
 }

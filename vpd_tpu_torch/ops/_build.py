@@ -40,6 +40,8 @@ _SIGNATURES = {
     # q, q_lens, t, t_lens, out, Q, T, L, D, step_pattern, stream
     # -> cudaError_t
     'vpd_dtw_matrix': (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # L, D, step_pattern, info (int[5]) -> cudaError_t
+    'vpd_dtw_kernel_info': (_I, (_I, _I, _I, ctypes.POINTER(_I))),
 }
 
 

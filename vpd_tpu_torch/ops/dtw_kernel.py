@@ -3,9 +3,11 @@
 Kernel B2 of the port. It replaces the TPU kernel `_dtw_kernel` in
 `vpd_tpu/ops/pallas/dtw_kernel.py` (launched by `dtw_matrix_pallas`) with
 the hand-written CUDA kernel `csrc/dtw.cu` for sm_90a. The work is bound
-by operations: about 2D + 8 float32 operations for each DP cell inside
-the lengths, against a few MB of inputs and outputs. The kernel's design
-is described in its source.
+by operations, in two parts, for each DP cell inside the lengths: the
+local cost is a product of 2D flops, which the kernel runs on the tensor
+cores in 3xTF32, and the recurrence about 8 float32 operations on the
+CUDA cores; inputs and outputs are a few MB. The kernel's design is
+described in its source.
 
 On a CPU tensor `dtw_matrix` runs the plain twin `ops.dtw.
 dtw_matrix_reference`; on a CUDA tensor it launches the kernel or raises.
@@ -96,3 +98,21 @@ def dtw_matrix(q, q_lens, t, t_lens, step_pattern='symmetricP2'):
             'dtw kernel launch failed with CUDA error {}'.format(err))
     launches += 1
     return out
+
+
+def kernel_info(L, D, step_pattern='symmetricP2'):
+    """What the kernel's launch for (L, D, step_pattern) uses on the
+    current card: registers and local (spill) bytes per thread, shared
+    memory bytes and warps per block, and warps resident per SM."""
+    import ctypes
+
+    from ._build import load_kernels
+
+    info = (ctypes.c_int * 5)()
+    err = load_kernels().vpd_dtw_kernel_info(L, D, STEP_IDS[step_pattern],
+                                             info)
+    if err != 0:
+        raise RuntimeError('dtw kernel info failed with CUDA error {}'.format(
+            err))
+    return dict(zip(('registers', 'local_bytes', 'smem_bytes',
+                     'warps_per_block', 'resident_warps_per_sm'), info))
