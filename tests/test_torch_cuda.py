@@ -217,10 +217,13 @@ def test_dtw_kernel_identical_sequences(cuda_device, step_pattern):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('L,D', [(128, 32), (128, 64), (512, 128)])
-def test_dtw_kernel_info(cuda_device, L, D):
-    """The launch's resources: no register spills, and at least 16 warps
-    resident per SM at the main path's shapes (L <= 128)."""
-    info = tdtw.kernel_info(L, D)
+@pytest.mark.parametrize('step_pattern', ['symmetricP2', 'symmetric2'])
+@pytest.mark.parametrize('L,D,warps', [(128, 32, 20), (128, 64, 16),
+                                       (512, 128, 1)])
+def test_dtw_kernel_info(cuda_device, step_pattern, L, D, warps):
+    """The launch's resources: no register spills, and at the main path's
+    shapes (L <= 128) more warps resident per SM than the 16 of the
+    shared-memory recurrence at D = 32."""
+    info = tdtw.kernel_info(L, D, step_pattern)
     assert info['local_bytes'] == 0, info
-    assert info['resident_warps_per_sm'] >= (16 if L <= 128 else 1), info
+    assert info['resident_warps_per_sm'] >= warps, info

@@ -122,10 +122,10 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// The whole block: target rows c0 .. c0 + mc - 1 into the A-fragment
-// order, hi and lo parts, zeros up to the next multiple of 16 rows and of
-// 8 dimensions, and their squared norms into tn. A warp takes a row, its
-// lanes the dimensions.
+// The whole block: target rows c0 .. (at most cw of them, up to m) into
+// the A-fragment order, hi and lo parts, zeros up to the next multiple of
+// 16 rows and of 8 ks dimensions, and their squared norms into tn. A warp
+// takes a row, its lanes the dimensions.
 __device__ void stage_target(const float* tp, float* frag, float* tn, int c0,
                              int m, int D, const Layout& lay) {
   const int rows = min(lay.cw, m - c0);

@@ -12,6 +12,12 @@ name and `os.replace`d into place, so concurrent builds (test workers, a
 smoke run) cannot race. No PyTorch headers are compiled: a build takes
 seconds. A missing nvcc or a failed build raises with the compiler's
 output.
+
+    python -m vpd_tpu_torch.ops._build
+
+compiles every source once more with `-Xptxas -v` and prints ptxas's
+report: registers, spill stores and loads, and static shared memory of
+each kernel.
 """
 
 import ctypes
@@ -20,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -125,3 +132,28 @@ def load_kernels():
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def ptxas_report():
+    """ptxas's resource report for every kernel in csrc/, as text."""
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for src in sources():
+            cmd = [nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-c', str(src), '-o',
+                   os.path.join(tmp, src.stem + '.o')]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outs = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError('nvcc failed:\n$ {}\n{}'.format(
+                    ' '.join(cmd), out))
+            outs.append(out)
+    return ''.join(outs)
+
+
+if __name__ == '__main__':
+    sys.stdout.write(ptxas_report())
