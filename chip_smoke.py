@@ -10,8 +10,13 @@ line each; any failure raises and exits non-zero:
              requires compute capability 9.0
   build      compiles every kernel in vpd_tpu_torch/csrc with nvcc
   kernels    each kernel against its plain PyTorch twin on the card:
-             B1 (preprocess) at the extraction shapes, timed beside its
-             bound; B2 (all-pairs DTW) for both step patterns at L in
+             B1 (preprocess) at the extraction shapes and at shapes of
+             its general variant (W off a multiple of 16, offset views),
+             with the variant that ran, the differing elements and
+             ptxas's registers and spills, timed beside its bounds (pair
+             mode with 5 and 3 channels, mode 0) with its general
+             variant and a plain copy of as many bytes as yardsticks;
+             B2 (all-pairs DTW) for both step patterns at L in
              {128, 512}, D in {32, 64}, at lengths on its tile edges with
              D in {1, 7, 20, 32, 64, 128}, a subset and identical
              sequences against the f64 host DP, and its launch's
@@ -31,8 +36,9 @@ line each; any failure raises and exits non-zero:
              (ResNet-34, 32-d, 128x128, batch 512, orig + flip): random-init
              students written with the port's checkpoint writer, raw shards
              (and PNGs when cv2 or PIL is present), `apply_vpd` on cuda with
-             the kernel launch counts checked, outputs held against the same
-             weights in float32 with the plain preprocess and TF32 off
+             the kernel launch counts (and B1's vector variant) checked,
+             outputs held against the same weights in float32 with the
+             plain preprocess and TF32 off
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
@@ -80,6 +86,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM, float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 TOL = 0.02                 # bf16 rounding of values in [-4.2, 4.4]
+B1_MAX_DIFF_5CH = 0.002    # share of B1's 5-channel outputs one ulp off
+B1_REPS = 20               # B1 launches a timing sample
 COS_BAR = 0.999
 # B2 against its twin: both take the matmul form of the cost (the kernel
 # in 3xTF32), whose float32 rounding differs in order
@@ -109,8 +117,11 @@ def card_line():
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Median milliseconds of `fn` over `iters` launches (CUDA events)."""
+def cuda_ms(fn, iters=20, warmup=3, reps=1):
+    """Median milliseconds of one call of `fn` over `iters` samples (CUDA
+    events), each sample `reps` calls back to back. reps > 1 keeps the
+    card's queue full, so a kernel shorter than its host-side launch is
+    timed without the host's gaps."""
     for _ in range(warmup):
         fn()
     times = []
@@ -118,10 +129,11 @@ def cuda_ms(fn, iters=20, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -168,73 +180,175 @@ def phase_build():
           'library': os.path.relpath(lib, ROOT)})
 
 
-def _crops(gen, b, flow_c):
+def _crops(gen, b, flow_c, size=IMG):
     dev = torch.device('cuda')
-    rgb = torch.randint(0, 256, (b, IMG, IMG, 3), generator=gen,
+    rgb = torch.randint(0, 256, (b, size, size, 3), generator=gen,
                         device=dev, dtype=torch.uint8)
-    flow = (torch.randint(0, 256, (b, IMG, IMG, flow_c), generator=gen,
+    flow = (torch.randint(0, 256, (b, size, size, flow_c), generator=gen,
                           device=dev, dtype=torch.uint8) if flow_c else None)
     return rgb, flow
 
 
+def _offset_copy(x):
+    """x copied into a contiguous view 8 bytes into its buffer: the
+    general variant's input."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    return buf[8:].view(x.shape).copy_(x)
+
+
+def _b1_bound(b, channels, pair, flow_c):
+    """B1's least time in ms: the larger of the bytes (uint8 in once, bf16
+    out once) and its 3 float32 operations an output value (sub, mul,
+    convert). Its record."""
+    out_elems = (2 if pair else 1) * b * IMG * IMG * channels
+    moved = b * IMG * IMG * (3 + flow_c) + 2 * out_elems
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * out_elems / F32_FLOPS_PER_S * 1e3
+    return {'bytes': moved, 'bound_ms': max(bytes_ms, ops_ms),
+            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations'}
+
+
+def _b1_case(gen, b, flow_c, size=IMG, view=None):
+    """Inputs of one B1 check. view 'offset8': every input starts 8 bytes
+    into its buffer; 'drop_first': rgb and flow are x[1:] of a batch one
+    larger (a contiguous view with an offset of one sample)."""
+    rgb, flow = _crops(gen, b + (view == 'drop_first'), flow_c, size)
+    if view is not None:
+        cut = (lambda x: x[1:]) if view == 'drop_first' else _offset_copy
+        rgb, flow = cut(rgb), None if flow is None else cut(flow)
+    flip = torch.randint(0, 2, (b,), generator=gen, device='cuda',
+                         dtype=torch.int32)
+    return rgb, flow, flip
+
+
+def _b1_vs_twin(out, ref):
+    """B1's output against its twin's: within TOL; the rgb channels bit
+    for bit; a differing element only in a flow channel and one bf16 step
+    off (the twin divides by 255 where the kernel multiplies by 1/255);
+    at most B1_MAX_DIFF_5CH of the elements at shapes of 2^20 elements
+    and more (which byte values differ is fixed, so small shapes scatter
+    around that share). The check's record."""
+    diff = out != ref
+    n_diff = int(diff.sum())
+    steps = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+    rec = {'channels': out.shape[-1],
+           'max_abs_err': (out.float() - ref.float()).abs().max().item(),
+           'elements_differing': n_diff, 'elements': out.numel(),
+           'max_bf16_steps': int(steps.max())}
+    if not (rec['max_abs_err'] <= TOL and not diff[..., :3].any()
+            and rec['max_bf16_steps'] <= 1
+            and (out.numel() < 1 << 20
+                 or n_diff <= B1_MAX_DIFF_5CH * out.numel())):
+        raise AssertionError('preprocess kernel disagrees with its twin: '
+                             '{}'.format(rec))
+    return rec
+
+
 def phase_kernels():
-    """B1 against its twin: B in {13, 512}, 3 and 5 channels, both modes."""
+    """B1 against its twin at the extraction shapes (B in {13, 512}, 3 and
+    5 channels, both modes) and at shapes that reach the general variant
+    (W off a multiple of 16, offset views) or other flow widths; which
+    variant ran at each; B1's ptxas resources; timings beside bounds."""
     mean, std = default_config('fs', EMB)['rgb_mean_std']
     gen = torch.Generator(device='cuda').manual_seed(SEED)
+    # (b, flow_c, size, view, the variant it must take); B = BATCH at
+    # 128x128 with 0 or 3 flow channels is the main path's shape
+    cases = [(13, 0, IMG, None, 'vector'), (13, 3, IMG, None, 'vector'),
+             (BATCH, 0, IMG, None, 'vector'),
+             (BATCH, 3, IMG, None, 'vector'),
+             (1, 3, IMG, None, 'vector'), (4, 2, IMG, None, 'vector'),
+             (4, 4, IMG, None, 'vector'), (5, 3, 20, None, 'general'),
+             (3, 4, 7, None, 'general'), (4, 3, 7, 'drop_first', 'general'),
+             (4, 3, IMG, 'drop_first', 'vector'),
+             (6, 3, IMG, 'offset8', 'general'),
+             (6, 0, IMG, 'offset8', 'general')]
     checks, max_err = [], 0.
-    for b in (13, BATCH):
-        for flow_c in (0, 3):
-            rgb, flow = _crops(gen, b, flow_c)
-            flip = torch.randint(0, 2, (b,), generator=gen, device='cuda',
-                                 dtype=torch.int32)
-            for mode in (0, 1):
-                if mode == 0:
-                    out = pre.preprocess_crops(rgb, flow, flip, mean, std)
-                    ref = pre.preprocess_crops_reference(rgb, flow, flip,
-                                                         mean, std)
-                else:
-                    out = pre.preprocess_orig_and_flip(rgb, flow, mean, std)
-                    ref = pre.preprocess_orig_and_flip_reference(
-                        rgb, flow, mean, std)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                n_diff = int((out != ref).sum().item())
-                checks.append({'b': b, 'channels': 5 if flow_c else 3,
-                               'mode': mode, 'max_abs_err': err,
-                               'elements_differing': n_diff,
-                               'elements': out.numel()})
-                max_err = max(max_err, err)
-                if not err <= TOL:
-                    raise AssertionError('preprocess kernel off by {} '
-                                         '(> {}) at {}'.format(
-                                             err, TOL, checks[-1]))
+    for b, flow_c, size, view, want in cases:
+        rgb, flow, flip = _b1_case(gen, b, flow_c, size, view)
+        for mode in (0, 1):
+            before = dict(pre.variant_launches)
+            if mode == 0:
+                out = pre.preprocess_crops(rgb, flow, flip, mean, std)
+                ref = pre.preprocess_crops_reference(rgb, flow, flip,
+                                                     mean, std)
+            else:
+                out = pre.preprocess_orig_and_flip(rgb, flow, mean, std)
+                ref = pre.preprocess_orig_and_flip_reference(
+                    rgb, flow, mean, std)
+            torch.cuda.synchronize()
+            ran = [v for v in before
+                   if pre.variant_launches[v] == before[v] + 1]
+            checks.append({'b': b, 'size': size, 'flow_c': flow_c,
+                           'view': view, 'mode': mode, 'variant': ran,
+                           **_b1_vs_twin(out, ref)})
+            max_err = max(max_err, checks[-1]['max_abs_err'])
+            if ran != [want]:
+                raise AssertionError('preprocess ran the {} variant, not '
+                                     '{}, at {}'.format(ran, want,
+                                                        checks[-1]))
 
-    # timing at the main path's shape: B=512 pair mode, 5 channels
+    # ptxas's resources of every B1 build: no build may spill
+    ptxas = _build.ptxas_resources(_build.ptxas_report(['preprocess.cu']))
+    if not ptxas or any(k['spill_store_bytes'] or k['spill_load_bytes']
+                        for k in ptxas):
+        raise AssertionError('a B1 build spills: {}'.format(ptxas))
+
+    # timing at the main path's shapes, the vector variant, B1_REPS
+    # launches back to back a sample (one launch is shorter than the
+    # wrapper's host time)
     rgb, flow = _crops(gen, BATCH, 3)
-    ms = cuda_ms(lambda: pre.preprocess_orig_and_flip(rgb, flow, mean, std))
+    rgb3, _ = _crops(gen, BATCH, 0)
+    flip = torch.randint(0, 2, (BATCH,), generator=gen, device='cuda',
+                         dtype=torch.int32)
+    ms = cuda_ms(lambda: pre.preprocess_orig_and_flip(rgb, flow, mean, std),
+                 reps=B1_REPS)
     plain_ms = cuda_ms(lambda: pre.preprocess_orig_and_flip_reference(
         rgb, flow, mean, std))
-    rgb3, _ = _crops(gen, BATCH, 0)
     ms_rgb = cuda_ms(lambda: pre.preprocess_orig_and_flip(rgb3, None, mean,
-                                                          std))
-    out_elems = 2 * BATCH * IMG * IMG * 5
-    moved = rgb.numel() + flow.numel() + 2 * out_elems  # u8 in, bf16 out
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3 * out_elems / F32_FLOPS_PER_S * 1e3  # sub, mul, convert
-    bound_ms = max(bytes_ms, ops_ms)
-    rgb_moved = rgb3.numel() + 2 * (2 * BATCH * IMG * IMG * 3)
+                                                          std), reps=B1_REPS)
+    mode0_ms = cuda_ms(lambda: pre.preprocess_crops(rgb, flow, flip, mean,
+                                                    std), reps=B1_REPS)
+    # the general variant (the first port's design) on the same crops,
+    # reached through 8-byte offset views
+    rgb_o, flow_o = _offset_copy(rgb), _offset_copy(flow)
+    general_ms = cuda_ms(lambda: pre.preprocess_orig_and_flip(
+        rgb_o, flow_o, mean, std), reps=B1_REPS)
+    for args in ((rgb, flow), (rgb3, None)):  # the same arithmetic
+        vec = pre.preprocess_orig_and_flip(*args, mean, std)
+        gen_out = pre.preprocess_orig_and_flip(
+            *(None if a is None else _offset_copy(a) for a in args), mean,
+            std)
+        if not torch.equal(vec, gen_out):
+            raise AssertionError('B1\'s variants differ at {}'.format(
+                tuple(vec.shape)))
+    # the card's plain copy: one device-to-device copy_ of as many bytes
+    # as B1 moves at the main shape (read + write = twice that)
+    pair5 = _b1_bound(BATCH, 5, True, 3)
+    src = torch.empty(pair5['bytes'], dtype=torch.uint8, device='cuda')
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src), reps=B1_REPS)
+    del src, dst
+    pair3 = _b1_bound(BATCH, 3, True, 0)
+    mode0 = _b1_bound(BATCH, 5, False, 3)
     emit({'phase': 'kernels', 'kernel': 'preprocess', 'checks': checks,
-          'pair_5ch_ms': ms, 'pair_5ch_plain_ms': plain_ms,
-          'pair_5ch_bytes': moved, 'pair_5ch_bound_ms': bound_ms,
-          'pair_5ch_GBps': moved / ms / 1e6, 'pair_3ch_ms': ms_rgb,
-          'pair_3ch_bound_ms': rgb_moved / HBM_BYTES_PER_S * 1e3})
+          'ptxas': ptxas, 'pair_5ch_ms': ms, 'pair_5ch_plain_ms': plain_ms,
+          'pair_5ch_bytes': pair5['bytes'],
+          'pair_5ch_bound_ms': pair5['bound_ms'],
+          'pair_5ch_GBps': pair5['bytes'] / ms / 1e6,
+          'pair_5ch_general_variant_ms': general_ms,
+          'pair_3ch_ms': ms_rgb, 'pair_3ch_bytes': pair3['bytes'],
+          'pair_3ch_bound_ms': pair3['bound_ms'],
+          'mode0_5ch_ms': mode0_ms, 'mode0_5ch_bytes': mode0['bytes'],
+          'mode0_5ch_bound_ms': mode0['bound_ms'],
+          'copy_bytes': pair5['bytes'], 'copy_ms': copy_ms,
+          'copy_GBps': 2 * pair5['bytes'] / copy_ms / 1e6})
     return {'name': 'preprocess', 'route': 'cuda',
             'source': 'vpd_tpu_torch/csrc/preprocess.cu',
             'replaces': 'vpd_tpu/ops/pallas/preprocess.py:37',
             'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms,
-            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-            'library_ms': None}
+            'bound_ms': pair5['bound_ms'], 'bound_by': pair5['bound_by'],
+            'library_ms': None, 'pair_3ch_ms': ms_rgb,
+            'mode0_5ch_ms': mode0_ms, 'copy_ms': copy_ms}
 
 
 def _dtw_inputs(gen, n_q, n_t, L, D):
@@ -700,19 +814,25 @@ def phase_slice(card):
 
     # the main path: counts from 0 just before, read just after
     pre.launches = 0
+    pre.variant_launches = {'vector': 0, 'general': 0}
     secs = {}
     for use_flow in (True, False):
         secs[use_flow] = run(use_flow, os.path.join(
             WORK, 'out_{}'.format(use_flow)), tasks, shard_reader=reader)
     launches = pre.launches
+    variants = dict(pre.variant_launches)
     if launches != 2 * n_chunks:
         raise AssertionError('preprocess launched {} times, expected {} '
                              '(one per chunk)'.format(launches,
                                                       2 * n_chunks))
+    if variants['vector'] != launches:
+        raise AssertionError('the main path ran B1\'s variants {}, not the '
+                             'vector one alone'.format(variants))
 
     result = {'phase': 'slice', 'card': card, 'crops': len(tasks),
               'batch': BATCH, 'chunks_per_run': n_chunks,
-              'preprocess_launches': launches}
+              'preprocess_launches': launches,
+              'preprocess_variant_launches': variants}
     for use_flow in (True, False):
         tag = 'flow' if use_flow else 'rgb'
         embs = _load_embs(os.path.join(WORK, 'out_{}'.format(use_flow)))

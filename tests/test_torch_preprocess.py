@@ -98,10 +98,52 @@ def test_twin_output_dtype_follows_out_dtype():
 
 def test_cpu_calls_count_no_launches():
     rgb, flow, flip = _inputs(2, seed=4)
-    before = tpre.launches
+    before, variants = tpre.launches, dict(tpre.variant_launches)
     tpre.preprocess_orig_and_flip(torch.from_numpy(rgb),
                                   torch.from_numpy(flow), MEAN, STD)
     assert tpre.launches == before
+    assert tpre.variant_launches == variants
+
+
+def _shifted(x, offset):
+    """x copied into a contiguous view `offset` bytes into its buffer."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype)
+    return buf[offset:].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize('w,flow_c,view,want', [
+    (128, 3, None, 'vector'),          # the extraction shape
+    (128, 0, None, 'vector'),          # RGB only
+    (128, 2, None, 'vector'),
+    (128, 4, None, 'vector'),
+    (32, 3, None, 'vector'),
+    (1024, 3, None, 'vector'),         # VECTOR_MAX_WIDTH
+    (1040, 3, None, 'general'),        # wider than a block's staging
+    (20, 3, None, 'general'),          # W not a multiple of 16
+    (7, 0, None, 'general'),
+    (128, 5, None, 'general'),         # more than 4 flow channels
+    (128, 3, 'rgb_offset8', 'general'),
+    (128, 3, 'flow_offset8', 'general'),
+    (128, 3, 'drop_first', 'vector'),  # x[1:]: offset 128*128*3 bytes
+    (16, 3, 'drop_first', 'vector'),
+    (7, 3, 'drop_first', 'general'),   # offset 147 bytes at an odd H*W
+])
+def test_kernel_variant_follows_shape_and_alignment(w, flow_c, view, want):
+    """Which kernel variant a CUDA call of these inputs would launch: the
+    16-byte vector one needs W % 16 == 0, W <= 1024, flow_c <= 4 and
+    16-byte aligned rgb and flow."""
+    b, h = 3, 8
+    rgb = torch.zeros((b + 1, h, w, 3), dtype=torch.uint8)
+    flow = (torch.zeros((b + 1, h, w, flow_c), dtype=torch.uint8)
+            if flow_c else None)
+    if view == 'drop_first':
+        rgb, flow = rgb[1:], None if flow is None else flow[1:]
+    elif view == 'rgb_offset8':
+        rgb = _shifted(rgb, 8)
+    elif view == 'flow_offset8':
+        flow = _shifted(flow, 8)
+    assert rgb.data_ptr() % 16 == 0 or view is not None
+    assert tpre.kernel_variant(rgb, flow) == want
 
 
 @pytest.mark.parametrize('bad', [

@@ -17,13 +17,15 @@ output.
 
 compiles every source once more with `-Xptxas -v` and prints ptxas's
 report: registers, spill stores and loads, and static shared memory of
-each kernel.
+each kernel. `ptxas_resources` reads that report into one record a
+kernel.
 """
 
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -41,9 +43,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # rgb, flow, flow_c, flip, out, B, H, W, mean x3, inv_std x3, mode,
-    # stream -> cudaError_t
+    # vector, stream -> cudaError_t
     'vpd_preprocess_crops': (_I, (_P, _P, _I, _P, _P, _I, _I, _I,
-                                  _F, _F, _F, _F, _F, _F, _I, _P)),
+                                  _F, _F, _F, _F, _F, _F, _I, _I, _P)),
     # q, q_lens, t, t_lens, out, Q, T, L, D, step_pattern, stream
     # -> cudaError_t
     'vpd_dtw_matrix': (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
@@ -134,12 +136,17 @@ def load_kernels():
     return lib
 
 
-def ptxas_report():
-    """ptxas's resource report for every kernel in csrc/, as text."""
+def ptxas_report(names=None):
+    """ptxas's resource report for every kernel in csrc/, or in the
+    sources named (e.g. ['preprocess.cu']), as text."""
+    srcs = [s for s in sources() if names is None or s.name in names]
+    if names is not None and len(srcs) != len(set(names)):
+        raise ValueError('no such sources in {}: {}'.format(
+            SRC_DIR, sorted(set(names) - {s.name for s in srcs})))
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
-        for src in sources():
+        for src in srcs:
             cmd = [nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-c', str(src), '-o',
                    os.path.join(tmp, src.stem + '.o')]
             procs.append((cmd, subprocess.Popen(
@@ -153,6 +160,33 @@ def ptxas_report():
                     ' '.join(cmd), out))
             outs.append(out)
     return ''.join(outs)
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILLS = re.compile(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                     r'(\d+) bytes spill loads')
+_REGISTERS = re.compile(r'Used (\d+) registers')
+
+
+def ptxas_resources(report):
+    """One record per entry function of a `ptxas_report`: its (mangled)
+    name, registers, stack frame and spill store and load bytes."""
+    kernels = []
+    for line in report.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            kernels.append({'kernel': m.group(1)})
+            continue
+        m = _SPILLS.search(line)
+        if m and kernels:
+            kernels[-1].update(zip(('stack_bytes', 'spill_store_bytes',
+                                    'spill_load_bytes'),
+                                   map(int, m.groups())))
+            continue
+        m = _REGISTERS.search(line)
+        if m and kernels:
+            kernels[-1]['registers'] = int(m.group(1))
+    return kernels
 
 
 if __name__ == '__main__':

@@ -9,16 +9,27 @@ least 65 us at the H100's 3.35 TB/s. The kernel reads each input byte
 once and writes both variants from that one read (pair mode), straight
 into the channels_last layout the encoder takes.
 
+The kernel has two variants. The vector variant moves 16 bytes a thread
+and stages whole rows in shared memory; it takes W a multiple of 16 up
+to 1024, at most 4 flow channels and 16-byte aligned inputs. The general
+variant (one thread per pixel) takes everything else. `kernel_variant`
+decides from the shapes and the pointers before the launch.
+
 On a CPU tensor the wrappers run the plain twin built from
-`data/augment.py`; on a CUDA tensor they launch the kernel or raise.
-`launches` counts kernel launches (not twin calls).
+`data/augment.py`; on a CUDA tensor they launch a variant of the kernel
+or raise. `launches` counts kernel launches (not twin calls), and
+`variant_launches` counts them by variant.
 """
 
 import torch
 
 from ..data.augment import eval_transform_batch, flip_batch
 
+VECTOR_MAX_WIDTH = 1024
+VECTOR_MAX_FLOW_C = 4
+
 launches = 0
+variant_launches = {'vector': 0, 'general': 0}
 
 
 def preprocess_crops_reference(rgb_u8, flow_u8, flip, mean, std,
@@ -64,6 +75,20 @@ def _check(rgb_u8, flow_u8, mean, std):
         bad('mean and std need 3 values each')
 
 
+def kernel_variant(rgb_u8, flow_u8):
+    """'vector' where the kernel's vector variant takes these (checked)
+    inputs, else 'general': W a multiple of 16 and at most
+    VECTOR_MAX_WIDTH, at most VECTOR_MAX_FLOW_C flow channels, and rgb
+    and flow starting on a 16-byte boundary. The output, a fresh tensor,
+    always does."""
+    w = rgb_u8.shape[2]
+    ok = w % 16 == 0 and w <= VECTOR_MAX_WIDTH and rgb_u8.data_ptr() % 16 == 0
+    if flow_u8 is not None:
+        ok = ok and flow_u8.shape[-1] <= VECTOR_MAX_FLOW_C \
+            and flow_u8.data_ptr() % 16 == 0
+    return 'vector' if ok else 'general'
+
+
 def _launch(rgb_u8, flow_u8, flip, mean, std, mode, out_dtype):
     global launches
 
@@ -81,6 +106,7 @@ def _launch(rgb_u8, flow_u8, flip, mean, std, mode, out_dtype):
                       dtype=torch.bfloat16, device=rgb_u8.device)
     if b == 0:
         return out
+    variant = kernel_variant(rgb_u8, flow_u8)
     lib = load_kernels()
     with torch.cuda.device(rgb_u8.device):
         err = lib.vpd_preprocess_crops(
@@ -90,11 +116,14 @@ def _launch(rgb_u8, flow_u8, flip, mean, std, mode, out_dtype):
             None if flip is None else flip.data_ptr(),
             out.data_ptr(), b, h, w,
             *(float(m) for m in mean), *(1. / float(s) for s in std),
-            mode, torch.cuda.current_stream(rgb_u8.device).cuda_stream)
+            mode, int(variant == 'vector'),
+            torch.cuda.current_stream(rgb_u8.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            'preprocess kernel launch failed with CUDA error {}'.format(err))
+            'preprocess kernel ({} variant) launch failed with CUDA error {}'
+            .format(variant, err))
     launches += 1
+    variant_launches[variant] += 1
     return out
 
 
