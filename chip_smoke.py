@@ -39,6 +39,16 @@ line each; any failure raises and exits non-zero:
              the kernel launch counts (and B1's vector variant) checked,
              outputs held against the same weights in float32 with the
              plain preprocess and TF32 off
+  train      the student's train step at bench.py's train rung (B = 2048,
+             ResNet-34 + motion head, bf16 compute over float32 master
+             weights, RGB + flow + mask, bf16 augmentation) on batches
+             made on the card: crops/s, ms per step split by CUDA events
+             into augment (and its stages), fwd + bwd and AdamW, peak
+             memory, fwd + bwd TFLOP/s against the bf16 peak, and the
+             loss falling on one batch; then `python -m vpd_tpu_torch.tools.train_vpd` end to
+             end on a synthetic fs corpus in raw shards (2 epochs at the
+             default batch of 100, --resume to 3), its checkpoints read
+             back, and `best_epoch` extracted through `apply_vpd`
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
@@ -60,6 +70,7 @@ import numpy as np
 import torch
 
 from vpd_tpu_torch.core.io import store_embs_pickle
+from vpd_tpu_torch.data import augment as aug
 from vpd_tpu_torch.data.shards import ShardReader, write_raw_shards
 from vpd_tpu_torch.datasets.eval_splits import FS_TEST_PREFIXES
 from vpd_tpu_torch.datasets.metadata_cache import load_meta_cache
@@ -72,6 +83,8 @@ from vpd_tpu_torch.ops import preprocess as pre
 from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
 from vpd_tpu_torch.tasks import neighbors as nb
 from vpd_tpu_torch.tools import recognize as recognize_cli
+from vpd_tpu_torch.train.vpd import (create_state, forward_backward,
+                                     make_train_step, optimizer_step)
 from vpd_tpu_torch.train.vpd_loop import (build_student, default_config,
                                           save_student)
 
@@ -104,6 +117,12 @@ FS_EMB = 32                # the student's width: (2, 32) rows, orig + flip
 FS_SHOTS, FS_TRIALS = [4, 16, 64], 10
 FS_HITS = [1, 10, 25, 50]
 FS_ACC_BAR = 0.9           # full-data accuracy; chance is 1/6
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
+TRAIN_B = 2048             # bench.py's train rung (bench.py:96-117)
+TRAIN_RING = 4             # distinct batches the timed steps cycle over
+TRAIN_WARMUP, TRAIN_STEPS, FIT_STEPS = 3, 10, 10
+CLI_VIDEOS, CLI_FRAMES = 4, 300
+CLI_EPOCHS = 2
 
 
 def emit(obj):
@@ -902,6 +921,220 @@ def phase_slice(card):
     return launches
 
 
+def _train_ring(gen):
+    """TRAIN_RING uint8 batches on the card, as the train source gives
+    them: rgb, 3-channel flow (the PNG layout), 0/255 person masks, the
+    motion head's 64-d targets and the flips."""
+    dev = torch.device('cuda')
+    ring = []
+    for _ in range(TRAIN_RING):
+        rgb, flow = _crops(gen, TRAIN_B, 3)
+        mask = (torch.rand((TRAIN_B, IMG, IMG), generator=gen, device=dev)
+                > 0.5).to(torch.uint8) * 255
+        ring.append({'rgb': rgb, 'flow': flow, 'mask': mask,
+                     'emb': torch.randn((TRAIN_B, 2 * EMB), generator=gen,
+                                        device=dev),
+                     'flip': torch.rand(TRAIN_B, generator=gen,
+                                        device=dev) < 0.5})
+    return ring
+
+
+def _augment_parts(batch, mean_std):
+    """CUDA-event ms of the augmentation's stages on one TRAIN_B batch,
+    each timed alone on its own input (so they need not sum to the
+    whole): the uint8 -> bf16 cast, colour jitter, normalize + mask
+    noise + flow concat, the flip, the resample."""
+    dt = torch.bfloat16
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    draws = aug.sample_train_augment(gen, torch.Generator().manual_seed(SEED),
+                                     TRAIN_B, IMG, IMG, noise_dtype=dt)
+    draws['flip'] = batch['flip']
+    mean, std = (torch.tensor(v, dtype=dt, device='cuda') for v in mean_std)
+    x01 = batch['rgb'].to(dt) / 255.
+
+    def normalize_noise_flow():
+        x = aug.add_mask_noise(aug.normalize_rgb(x01, mean, std),
+                               batch['mask'], draws['noise'],
+                               draws['apply_noise'])
+        return torch.cat([x, aug.decode_flow(batch['flow'], dt)], dim=-1)
+
+    x5 = normalize_noise_flow()
+    stages = {
+        'cast': lambda: batch['rgb'].to(dt) / 255.,
+        'jitter': lambda: aug.batch_color_jitter(x01, draws),
+        'normalize_noise_flow': normalize_noise_flow,
+        'flip': lambda: aug.flip_samples(x5, draws['flip'], True),
+        'resample': lambda: aug.bilinear_resample(
+            x5, draws['top'], draws['left'], draws['crop_h'],
+            draws['crop_w'], IMG, IMG)}
+    return {name: cuda_ms(fn, iters=5, warmup=1)
+            for name, fn in stages.items()}
+
+
+def _train_step_on_card(card):
+    """The train step at TRAIN_B: timings, memory, FLOP rate, and the
+    loss over FIT_STEPS steps on one batch."""
+    cfg = default_config('fs', EMB, img_dim=IMG, use_flow=True, motion=True,
+                         encoder_arch='resnet34')
+    torch.manual_seed(SEED)
+    model = build_student(cfg, dtype=torch.bfloat16,
+                          param_dtype=torch.float32).cuda()
+    model.to(memory_format=torch.channels_last)
+    state = create_state(model, cfg['learning_rate'])
+    step = make_train_step(*cfg['rgb_mean_std'], img_dim=IMG, use_flow=True,
+                           use_mask=True, aug_dtype=torch.bfloat16)
+    ring = _train_ring(torch.Generator(device='cuda').manual_seed(SEED))
+    seed = SEED + 1
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP):
+        step(state, ring[i % TRAIN_RING], seed)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        batch = ring[i % TRAIN_RING]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        imgs = step.augment(batch, seed, state.step)
+        ev[1].record()
+        forward_backward(state, imgs, batch['emb'])
+        ev[2].record()
+        optimizer_step(state)
+        ev[3].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    split = {name: statistics.median(ev[k].elapsed_time(ev[k + 1])
+                                     for ev in marks)
+             for k, name in enumerate(('augment_ms', 'fwd_bwd_ms',
+                                       'optimizer_ms'))}
+    step_ms = statistics.median(ev[0].elapsed_time(ev[3]) for ev in marks)
+
+    augment_parts = _augment_parts(ring[0], cfg['rgb_mean_std'])
+    imgs = step.augment(ring[0], seed, 0)
+    fwd_flops = _encoder_flops(model.eval(), imgs.permute(0, 3, 1, 2))
+    train_flops = 3 * fwd_flops
+    tflops = train_flops / split['fwd_bwd_ms'] / 1e9
+
+    losses = []
+    for _ in range(FIT_STEPS):  # one fixed batch, fresh draws each step
+        losses.append(step(state, ring[0], seed)['emb_loss_sum'])
+    losses = torch.stack(losses).tolist()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError('the loss does not fall on one batch: {}'
+                             .format(losses))
+    return {'batch': TRAIN_B, 'arch': 'resnet34', 'channels': 5,
+            'motion': True, 'compute': 'bf16, float32 master weights',
+            'augment_dtype': 'bf16', 'warmup_steps': TRAIN_WARMUP,
+            'warmup_seconds': warmup_s, 'timed_steps': TRAIN_STEPS,
+            'crops_per_s': TRAIN_B * TRAIN_STEPS / wall,
+            'host_ms_per_step': wall / TRAIN_STEPS * 1e3,
+            'device_ms_per_step': step_ms, **split,
+            'augment_parts_ms': augment_parts,
+            'peak_memory_GiB': peak / 2 ** 30,
+            'fwd_gflop_per_crop': fwd_flops / TRAIN_B / 1e9,
+            'fwd_bwd_tflops_per_s': tflops,
+            'bf16_peak_share': tflops * 1e12 / BF16_FLOPS_PER_S,
+            'bf16_peak_TFLOPs': BF16_FLOPS_PER_S / 1e12, 'card': card,
+            'fixed_batch_losses': losses}
+
+
+def _write_train_corpus(root, rng):
+    """Teacher `.emb.pkl` files ((2, 32) rows, a dp_score each) and raw
+    shards with rgb, flow and masks for CLI_VIDEOS x CLI_FRAMES crops."""
+    emb_dir = os.path.join(root, 'embs')
+    os.makedirs(emb_dir)
+    n = CLI_VIDEOS * CLI_FRAMES
+    keys = ['video{}/{}'.format(v, f) for v in range(CLI_VIDEOS)
+            for f in range(CLI_FRAMES)]
+    for v in range(CLI_VIDEOS):
+        rows = [(f, rng.normal(0, 1, (2, EMB)).astype(np.float32),
+                 {'dp_score': 0.9}) for f in range(CLI_FRAMES)]
+        store_embs_pickle(os.path.join(emb_dir, 'video{}.emb.pkl'.format(v)),
+                          rows)
+    shard_dir = os.path.join(root, 'shards')
+    write_raw_shards(
+        shard_dir, keys, rng.integers(0, 256, (n, IMG, IMG, 3), np.uint8),
+        flow=rng.integers(0, 256, (n, IMG, IMG, 3), np.uint8),
+        flow_img_name='flow',
+        mask=((rng.random((n, IMG, IMG)) > 0.5) * 255).astype(np.uint8))
+    return emb_dir, shard_dir, keys
+
+
+def _train_cli(args, env):
+    """One `python -m vpd_tpu_torch.tools.train_vpd` run: (seconds, the
+    seconds of each epoch it printed)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'vpd_tpu_torch.tools.train_vpd', *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError('train_vpd failed ({}): {}'.format(
+            proc.returncode, proc.stderr[-3000:]))
+    epochs = [float(line.rsplit('(', 1)[1].split()[0])
+              for line in proc.stdout.splitlines()
+              if line.startswith('Epoch ')]
+    return secs, epochs
+
+
+def phase_train(card):
+    result = {'phase': 'train', 'card': card,
+              'step': _train_step_on_card(card)}
+
+    root = os.path.join(WORK, 'train')
+    emb_dir, shard_dir, keys = _write_train_corpus(
+        root, np.random.default_rng(SEED))
+    sports = os.path.join(root, 'sports')
+    save = os.path.join(root, 'run')
+    env = dict(os.environ, VPD_SPORTS_DIR=sports)
+    common = ['fs', '--save_dir', save, '--emb_dir', emb_dir,
+              '--crop_shards', shard_dir, '--flow_img', 'flow', '--motion',
+              '--checkpoint_frequency', '1']
+    first = _train_cli(common + ['--num_epochs', str(CLI_EPOCHS)], env)
+    resumed = _train_cli(common + ['--num_epochs', str(CLI_EPOCHS + 1),
+                                   '--resume'], env)
+    with open(os.path.join(save, 'loss.json')) as fp:
+        losses = json.load(fp)
+    if [r['epoch'] for r in losses] != [1, 2, 3] or not np.isfinite(
+            [[r['train'], r['val']] for r in losses]).all():
+        raise AssertionError('loss.json: {}'.format(losses))
+    want = ['best_epoch.encoder.ckpt'] + ['epoch0003.{}.ckpt'.format(c) for c
+                                          in ('encoder', 'decoder',
+                                              'optimizer')]
+    missing = [f for f in want if not os.path.exists(os.path.join(save, f))]
+    if missing:
+        raise AssertionError('train_vpd wrote no {}'.format(missing))
+
+    # the served student through extraction on the card
+    crop_dir = os.path.join(sports, 'fs', 'crops')
+    tasks = [(0, f, os.path.join(crop_dir, 'video0', str(f)))
+             for f in range(CLI_FRAMES)]
+    out = os.path.join(root, 'embs_out')
+    pre.launches = 0
+    ap.apply_vpd(['video0'], tasks, save, out, flow_img_name='flow',
+                 shard_reader=ShardReader(shard_dir, crop_root=crop_dir),
+                 log=lambda *a: None)
+    embs = _load_embs(out)
+    _check_rows(embs, range(CLI_FRAMES))
+    if pre.launches < 1:
+        raise AssertionError('extraction did not launch the preprocess '
+                             'kernel')
+    per_epoch = 100 * (200 + 40)  # the CLI's virtual epoch at batch 100
+    epoch_s = first[1] + resumed[1]
+    result['cli'] = {
+        'crops': len(keys), 'batch': 100, 'epochs': len(epoch_s),
+        'run_seconds': [first[0], resumed[0]], 'epoch_seconds': epoch_s,
+        'crops_per_s_per_epoch': [per_epoch / s for s in epoch_s],
+        'losses': [[r['train'], r['val']] for r in losses],
+        'extracted_rows': len(embs['video0'])}
+    emit(result)
+
+
 def main():
     phase_env()
     card = card_line()
@@ -917,6 +1150,7 @@ def main():
                'max_abs_err': dtw_abs, 'max_rel_err': dtw_rel,
                **phase_recognize(card), 'library_ms': None}
         preprocess['launches'] = phase_slice(card)
+        phase_train(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card)

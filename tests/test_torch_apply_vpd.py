@@ -182,6 +182,49 @@ def test_no_flip_rows_match_vpd_tpu(world):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
 
 
+def test_jitter_variants_match_vpd_tpu(world, tmp_path):
+    """--jitter 1: the variants [orig, jitter, flip, flip-jitter] of one
+    chunk, the jitter drawn by vpd_tpu (its key for chunk 3, variant 0)
+    and passed to the port; float32 bars. Then the CLI path writes
+    (4, D) rows."""
+    from test_torch_augment import jax_jitter_draws
+
+    root, crop_dir, dirs = world
+    prefixes = [os.path.join(crop_dir, v, str(f)) for v in VIDEOS
+                for f in (0, 3, 5)]
+    rgb, flow, _ = jcrops.decode_crop_batch(
+        [p + '.png' for p in prefixes], IMG,
+        flow_paths=[p + '.flow.png' for p in prefixes], use_native=False)
+    jmodel, jvars, cfg = japply.load_student_dir(dirs[True],
+                                                 dtype=jnp.float32)
+    key, chunk_i = jax.random.key(5), 3
+    ref = np.asarray(japply.make_variant_embed(jmodel, jvars, cfg, jitter=1)(
+        rgb, flow, key, np.int32(chunk_i)))
+    draws = jax_jitter_draws(jax.random.fold_in(
+        jax.random.fold_in(key, chunk_i), 0), len(rgb))
+    model, tcfg = tapply.load_student_dir(dirs[True], dtype=torch.float32,
+                                          device='cpu')
+    fn = tapply.make_variant_embed(model, tcfg, jitter=1, device='cpu')
+    got = fn(torch.from_numpy(rgb), torch.from_numpy(flow),
+             jitter_draws=[draws]).numpy()
+    assert got.shape == ref.shape == (len(rgb), 4, EMB)
+    a, b = got.reshape(-1, EMB).astype(np.float64), ref.reshape(-1, EMB)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                             * np.linalg.norm(b, axis=-1))
+    assert cos.min() >= 1 - 1e-5, cos.min()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+    videos, tasks = tapply.scan_crop_dir(crop_dir)
+    out = str(tmp_path / 'jitter')
+    tapply.apply_vpd(videos, tasks, dirs[True], out, flow_img_name='flow',
+                     jitter=1, batch_size=4, device='cpu',
+                     log=lambda *a: None)
+    rows = load_out(out)['video0']
+    assert [r[0] for r in rows] == [0, 1, 3, 4, 5, 7]
+    assert all(r[1].shape == (4, EMB) and np.isfinite(r[1]).all()
+               for r in rows)
+
+
 def test_port_written_student_loads_in_vpd_tpu(world, tmp_path):
     _, crop_dir, _ = world
     cfg = default_config('fs', EMB, img_dim=IMG, use_flow=True,
@@ -265,7 +308,7 @@ def test_entry_points_need_a_gpu_unless_told_cpu(world):
         tapply.apply_vpd(videos, tasks, dirs[False], '/nonexistent')
 
 
-@pytest.mark.parametrize('kw', [{'jitter': 1}, {'upload_codec': 'yuv420'},
+@pytest.mark.parametrize('kw', [{'upload_codec': 'yuv420'},
                                 {'mesh': object()}])
 def test_unported_options_raise(world, kw):
     _, crop_dir, dirs = world
@@ -289,11 +332,11 @@ def test_decoders_agree_and_keep_raw_flow_order(world, monkeypatch):
     png_flow = np.stack([np.asarray(Image.open(p)) for p in flow_paths])
     np.testing.assert_array_equal(ref_flow, png_flow[..., ::-1])
 
-    cv_rgb, cv_flow = tcrops.decode_crop_batch(rgb_paths, IMG,
-                                               flow_paths=flow_paths)
+    cv_rgb, cv_flow, _ = tcrops.decode_crop_batch(rgb_paths, IMG,
+                                                  flow_paths=flow_paths)
     monkeypatch.setattr(tcrops, '_cv2', lambda: None)
-    pil_rgb, pil_flow = tcrops.decode_crop_batch(rgb_paths, IMG,
-                                                 flow_paths=flow_paths)
+    pil_rgb, pil_flow, _ = tcrops.decode_crop_batch(rgb_paths, IMG,
+                                                    flow_paths=flow_paths)
     for rgb, flow in ((cv_rgb, cv_flow), (pil_rgb, pil_flow)):
         np.testing.assert_array_equal(rgb, ref_rgb)
         np.testing.assert_array_equal(flow, ref_flow)

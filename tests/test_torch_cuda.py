@@ -17,16 +17,30 @@ off a multiple of 8, and
 against the f64 host DP at rtol 5e-3 (identical sequences at 1e-5
 absolute). Launch counters, the range checks, the launch's resources
 and ptxas's report (no build of either kernel spills) are tested too.
+
+The student's train step (no hand kernel: augmentation, cuDNN and fused
+AdamW) is held against the CPU float32 path from the same weights and
+draws with TF32 off: augmented images at atol 1e-5, the loss and the BN
+running statistics at rtol 1e-4, parameters within 2.5 x lr (Adam's first
+step is about lr x sign(g), and near-zero gradients may round to another
+sign). The bf16 step keeps float32 master weights, makes no host sync and
+lowers the loss on one batch.
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
+from vpd_tpu_torch.data.augment import (sample_train_augment,
+                                        train_augment_batch)
 from vpd_tpu_torch.ops import _build
 from vpd_tpu_torch.ops import dtw_kernel as tdtw
 from vpd_tpu_torch.ops import preprocess as tpre
 from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
+from vpd_tpu_torch.train import vpd as tvpd
+from vpd_tpu_torch.train.vpd_loop import build_student, default_config
 
 MEAN = (0.45, 0.47, 0.46)
 STD = (0.13, 0.12, 0.12)
@@ -310,3 +324,109 @@ def test_dtw_kernel_info(cuda_device, step_pattern, L, D, warps):
     info = tdtw.kernel_info(L, D, step_pattern)
     assert info['local_bytes'] == 0, info
     assert info['resident_warps_per_sm'] >= warps, info
+
+
+def _train_batch(rng, b, s, emb):
+    return {'rgb': torch.from_numpy(rng.integers(0, 256, (b, s, s, 3),
+                                                 np.uint8)),
+            'flow': torch.from_numpy(rng.integers(0, 256, (b, s, s, 3),
+                                                  np.uint8)),
+            'mask': torch.from_numpy(((rng.random((b, s, s)) > 0.5) * 255)
+                                     .astype(np.uint8)),
+            'emb': torch.from_numpy(rng.normal(size=(b, 2 * emb))
+                                    .astype(np.float32)),
+            'flip': torch.from_numpy(rng.random(b) < 0.5)}
+
+
+@pytest.mark.cuda
+def test_train_step_matches_cpu(cuda_device):
+    lr, emb = 1e-3, 8
+    cfg = default_config('fs', emb, img_dim=S, use_flow=True, motion=True,
+                         encoder_arch='resnet18')
+    torch.manual_seed(0)
+    cpu_model = build_student(cfg, dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    batch = _train_batch(np.random.default_rng(0), 8, S, emb)
+    draws = sample_train_augment(torch.Generator().manual_seed(1),
+                                 torch.Generator().manual_seed(1), 8, S, S)
+    draws['flip'] = batch['flip']
+    mean, std = cfg['rgb_mean_std']
+
+    def augment(b, d):
+        return train_augment_batch(b['rgb'], d, mean, std, flow_u8=b['flow'],
+                                   mask_u8=b['mask'], out_size=S)
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        imgs = augment(batch, draws)
+        gbatch = {k: v.to(cuda_device) for k, v in batch.items()}
+        gimgs = augment(gbatch, {k: v.to(cuda_device) if torch.is_tensor(v)
+                                 else v for k, v in draws.items()})
+        np.testing.assert_allclose(gimgs.cpu().numpy(), imgs.numpy(),
+                                   atol=1e-5)
+        cpu_state = tvpd.create_state(cpu_model, lr)
+        gpu_state = tvpd.create_state(gpu_model, lr)
+        m_cpu = tvpd.apply_train_update(cpu_state, imgs, batch['emb'])
+        m_gpu = tvpd.apply_train_update(gpu_state, gimgs, gbatch['emb'])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    np.testing.assert_allclose(float(m_gpu['emb_loss_sum']),
+                               float(m_cpu['emb_loss_sum']), rtol=1e-4)
+    gpu_sd = gpu_model.state_dict()
+    for name, t in cpu_model.state_dict().items():
+        got = gpu_sd[name].cpu()
+        if 'running' in name:
+            np.testing.assert_allclose(got.numpy(), t.numpy(), rtol=1e-4,
+                                       atol=1e-6, err_msg=name)
+        elif not name.endswith('num_batches_tracked'):
+            np.testing.assert_allclose(got.numpy(), t.numpy(),
+                                       atol=2.5 * lr, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_card(cuda_device):
+    """bf16 compute over float32 master weights, channels_last, fused
+    AdamW: no host sync inside a step (after the first, which makes the
+    step's constants), and the loss falls over 8 steps on one batch."""
+    emb = 8
+    cfg = default_config('fs', emb, img_dim=S, use_flow=True, motion=True,
+                         encoder_arch='resnet18')
+    torch.manual_seed(0)
+    model = build_student(cfg, dtype=torch.bfloat16,
+                          param_dtype=torch.float32).to(cuda_device)
+    model.to(memory_format=torch.channels_last)
+    state = tvpd.create_state(model, 1e-3)
+    step = tvpd.make_train_step(*cfg['rgb_mean_std'], img_dim=S,
+                                use_flow=True, aug_dtype=torch.bfloat16)
+    batch = {k: v.to(cuda_device) for k, v in _train_batch(
+        np.random.default_rng(1), 16, S, emb).items()}
+    losses = [step(state, batch, 0)['emb_loss_sum']]
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(7):
+            losses.append(step(state, batch, 0)['emb_loss_sum'])
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    losses = torch.stack(losses).tolist()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.encoder.compute_dtype == torch.bfloat16
+    assert state.step == 8
+
+    # AdamW's state through the checkpoint layout and back: the moments
+    # take the channels_last parameters' strides, as the fused step needs
+    tree = tvpd.optimizer_to_flax(state)
+    fresh = tvpd.create_state(model, 1e-3)
+    tvpd.load_optimizer_from_flax(fresh, tree)
+    assert fresh.step == 8
+    for p in model.parameters():
+        for key in ('exp_avg', 'exp_avg_sq'):
+            got = fresh.optimizer.state[p][key]
+            assert got.stride() == p.stride(), key
+            assert torch.equal(got, state.optimizer.state[p][key])
+    step(fresh, batch, 0)
+    assert fresh.step == 9

@@ -40,22 +40,50 @@ def test_port_and_chip_smoke_import_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert 'vpd_tpu_torch.infer.apply_vpd' in out['modules']
     assert 'vpd_tpu_torch.tools.apply_vpd' in out['modules']
-    for name in ('tasks.recognize', 'tools.recognize', 'ops.dtw_kernel'):
+    for name in ('tasks.recognize', 'tools.recognize', 'ops.dtw_kernel',
+                 'train.vpd', 'train.vpd_loop', 'tools.train_vpd',
+                 'core.metrics'):
         assert 'vpd_tpu_torch.' + name in out['modules']
     assert out['loaded'] == []
 
 
-def test_port_sources_import_no_jax():
+def port_sources(root):
+    """The `.py` files of the port under `root`: `vpd_tpu_torch/` without
+    its gitignored build directory, whose contents are build outputs (and
+    may be stale copies of anything)."""
+    files = []
+    for dirpath, dirnames, names in os.walk(os.path.join(root,
+                                                         'vpd_tpu_torch')):
+        dirnames[:] = [d for d in dirnames if d != '_build']
+        files += [os.path.join(dirpath, n) for n in names if n.endswith('.py')]
+    return files
+
+
+def forbidden_imports(files):
+    """{file: forbidden modules it imports}, by reading the sources."""
     pattern = re.compile(r'^\s*(?:from|import)\s+({})\b'.format(
         '|'.join(FORBIDDEN)), re.M)
-    files = [os.path.join(REPO, 'chip_smoke.py')]
-    for root, _, names in os.walk(os.path.join(REPO, 'vpd_tpu_torch')):
-        files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     offenders = {}
     for path in files:
         with open(path) as fp:
             found = pattern.findall(fp.read())
         if found:
-            offenders[os.path.relpath(path, REPO)] = found
+            offenders[path] = found
+    return offenders
+
+
+def test_port_sources_import_no_jax():
+    files = [os.path.join(REPO, 'chip_smoke.py')] + port_sources(REPO)
     assert len(files) > 20
-    assert offenders == {}
+    assert forbidden_imports(files) == {}
+
+
+def test_port_sources_skip_the_build_dir(tmp_path):
+    pkg = tmp_path / 'vpd_tpu_torch'
+    (pkg / '_build' / 'copy' / 'vpd_tpu_torch').mkdir(parents=True)
+    (pkg / 'ok.py').write_text('import torch\n')
+    stale = pkg / '_build' / 'copy' / 'vpd_tpu_torch' / 'stale.py'
+    stale.write_text('import jax\n')
+    files = port_sources(str(tmp_path))
+    assert files == [str(pkg / 'ok.py')]
+    assert forbidden_imports([str(stale)]) == {str(stale): ['jax']}

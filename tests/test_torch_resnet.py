@@ -204,7 +204,7 @@ def test_bf16_error_matches_vpd_tpu():
                           dtype=torch.float32).train()
     for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
-            m.momentum = None  # running stats = this batch's stats
+            m.momentum = 1.  # running stats = this batch's stats
     rng = np.random.default_rng(7)
     x_cal, x = (rng.uniform(-2, 2, (n, 64, 64, 5)).astype(np.float32)
                 for n in (16, 16))

@@ -6,13 +6,15 @@ numpy only: never jax, flax or anything of `vpd_tpu` (tests import both
 packages to hold one against the other).
 
 Layer map (the ported slices: student feature extraction; DTW
-recognition and retrieval):
-  core/      io + `.emb.pkl` interchange, flax-msgpack checkpoints, pipeline
-  data/      eval transforms, crop PNG decode, packed raw shards
+recognition and retrieval; student training):
+  core/      io + `.emb.pkl` interchange, flax-msgpack checkpoints, pipeline,
+             single-readback metrics
+  data/      eval transforms and the train augmentation, crop PNG decode,
+             packed raw shards, training batch sources and prefetch
   datasets/  dense embedding matrices, action windows and splits
   ops/       hand-written CUDA kernels (csrc/) with their plain twins; DTW
   models/    ResNet student, FCNet, flax weight mapping
-  train/     student modules and the config.json manifest
+  train/     student modules, the train step and the epoch loop
   infer/     batched embedding extraction (.emb.pkl writers)
   tasks/     kNN / retrieval over DTW, the few-shot protocol
   tools/     CLI entry points

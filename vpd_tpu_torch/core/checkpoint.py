@@ -1,10 +1,10 @@
 """Checkpoints in vpd_tpu's flax-msgpack format, without flax or msgpack.
 
-Counterpart of `vpd_tpu/core/checkpoint.py:24-64`: per-component files in
-a save dir, named ``{name}.{component}.ckpt`` with name in
-{'best_epoch', 'epoch%04d'}, beside the ``config.json`` manifest. A file
-holds flax's msgpack serialization of a nested dict of numpy arrays
-(`flax.serialization.to_bytes`).
+Counterpart of `vpd_tpu/core/checkpoint.py`: per-component files in a
+save dir, named ``{name}.{component}.ckpt`` with name in {'best_epoch',
+'epoch%04d'}, beside the ``config.json`` manifest, and the moving-average
+best-epoch selection. A file holds flax's msgpack serialization of a
+nested dict of numpy arrays (`flax.serialization.to_bytes`).
 
 The codec below covers the subset flax writes — maps with str keys, str,
 bin, arrays, nil, bools, ints, float64, ext type 1 (ndarray as a packed
@@ -17,6 +17,7 @@ as vpd_tpu's `save_component` of the same arrays.
 """
 
 import os
+import re
 import struct
 
 import numpy as np
@@ -289,3 +290,33 @@ def save_bundle(save_dir, name, components):
     for comp, tree in components.items():
         save_component(save_dir, name, comp, tree)
 
+
+def last_checkpoint_epoch(save_dir, component='encoder'):
+    """Largest epoch N with an epoch%04d.{component}.ckpt present, or -1
+    (a leftover 'epochNNNN.*.ckpt.tmp' of an interrupted write does not
+    count)."""
+    pattern = re.compile(r'epoch(\d+)\.' + re.escape(component) + r'\.ckpt')
+    last = -1
+    for fname in os.listdir(save_dir):
+        m = pattern.fullmatch(fname)
+        if m:
+            last = max(last, int(m.group(1)))
+    return last
+
+
+class MovingAvgSelector:
+    """Moving-average validation-loss model selection (reference
+    `train_vipe_model.py:228-229,388-423`)."""
+
+    def __init__(self, window=1):
+        self.window = window
+        self.history = []
+        self.best = float('inf')
+
+    def update(self, val_loss):
+        """Record a val loss; returns True if this epoch is a new best."""
+        self.history.append(val_loss)
+        mv_avg = float(np.mean(self.history[-self.window:]))
+        is_best = mv_avg < self.best
+        self.best = min(self.best, mv_avg)
+        return is_best

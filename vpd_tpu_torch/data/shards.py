@@ -12,8 +12,8 @@ under <shard_dir>, as `vpd_tpu.data.shards.pack_crops` writes it:
 
 `rel_prefix` is the crop path relative to the image root, '/'-separated,
 without extension: 'video/frame' or 'video/player/frame'. Extraction
-reads rgb and flow; the mask stream (training only) is not read yet, and
-`yuv420` shards are not ported yet (ROADMAP A3, the upload codec).
+reads rgb and flow, training rgb, flow and masks. `yuv420` shards are not
+ported yet (ROADMAP A3, the upload codec).
 """
 
 import json
@@ -37,11 +37,11 @@ def _no_yuv420(codec):
 
 
 def write_raw_shards(shard_dir, rel_prefixes, rgb, flow=None,
-                     flow_img_name=None,
+                     flow_img_name=None, mask=None,
                      rows_per_shard=DEFAULT_ROWS_PER_SHARD):
-    """Write already-decoded uint8 crops as raw shards (the layout above,
-    without masks). rgb: (N, S, S, 3); flow: (N, S, S, 3) with its PNG
-    name, or None. Returns the row count.
+    """Write already-decoded uint8 crops as raw shards (the layout above).
+    rgb: (N, S, S, 3); flow: (N, S, S, 3) with its PNG name, or None;
+    mask: (N, S, S) person masks, or None. Returns the row count.
     """
     n, s = rgb.shape[0], rgb.shape[1]
     if len(rel_prefixes) != n or (flow is None) != (flow_img_name is None):
@@ -56,6 +56,8 @@ def write_raw_shards(shard_dir, rel_prefixes, rgb, flow=None,
         np.ascontiguousarray(rgb[rows], np.uint8).tofile(base + '.rgb')
         if flow is not None:
             np.ascontiguousarray(flow[rows], np.uint8).tofile(base + '.flow')
+        if mask is not None:
+            np.ascontiguousarray(mask[rows], np.uint8).tofile(base + '.mask')
         shard_rows.append(rows.stop - rows.start)
     store_pickle(os.path.join(shard_dir, INDEX_FILE),
                  {rel: i for i, rel in enumerate(rel_prefixes)})
@@ -63,7 +65,7 @@ def write_raw_shards(shard_dir, rel_prefixes, rgb, flow=None,
         'img_dim': s,
         'codec': 'raw',
         'flow_img_name': flow_img_name,
-        'use_mask': False,
+        'use_mask': mask is not None,
         'rows_per_shard': rows_per_shard,
         'shard_rows': shard_rows,
         'num_rows': n,
@@ -90,6 +92,7 @@ class ShardReader:
         self.rows_per_shard = self.meta['rows_per_shard']
         self._rgb = []
         self._flow = []
+        self._mask = []
         for sid, rows in enumerate(self.meta['shard_rows']):
             base = os.path.join(shard_dir, 's{:04d}'.format(sid))
             self._rgb.append(np.memmap(
@@ -97,6 +100,9 @@ class ShardReader:
             if self.meta['flow_img_name']:
                 self._flow.append(np.memmap(
                     base + '.flow', np.uint8, 'r', shape=(rows, s, s, 3)))
+            if self.meta['use_mask']:
+                self._mask.append(np.memmap(
+                    base + '.mask', np.uint8, 'r', shape=(rows, s, s)))
 
     def __len__(self):
         return self.meta['num_rows']
@@ -117,13 +123,15 @@ class ShardReader:
         return np.array([self.index.get(self._rel(p), -1)
                          for p in prefixes], np.int64)
 
-    def fill(self, prefixes, rgb_out, flow_out=None):
+    def fill(self, prefixes, rgb_out, flow_out=None, mask_out=None):
         """Gather packed rows into out arrays; returns the list of batch
         positions NOT found (caller falls back to PNG decode for those)."""
         rows = self.rows(prefixes)
         hit = rows >= 0
         if flow_out is not None and not self._flow:
             raise ValueError('shards packed without flow')
+        if mask_out is not None and not self._mask:
+            raise ValueError('shards packed without masks')
         if hit.any():
             sids = rows[hit] // self.rows_per_shard
             locals_ = rows[hit] % self.rows_per_shard
@@ -134,17 +142,19 @@ class ShardReader:
                 rgb_out[p] = self._rgb[sid][l]
                 if flow_out is not None:
                     flow_out[p] = self._flow[sid][l]
+                if mask_out is not None:
+                    mask_out[p] = self._mask[sid][l]
         return np.nonzero(~hit)[0].tolist()
 
 
 def fill_or_decode(reader, prefixes, img_dim, *, flow_img_name=None,
-                   rgb_out=None, flow_out=None, codec='raw'):
+                   rgb_out=None, flow_out=None, mask_out=None, codec='raw'):
     """Shard gather with per-row PNG-decode fallback for unpacked crops.
 
     Drop-in alternative to `decode_crop_batch` over path prefixes; output
     bytes are identical. The request is checked against the shard meta so
-    a flow-variant or size mismatch fails loudly instead of gathering the
-    wrong packed stream.
+    a flow-variant, size or mask mismatch fails loudly instead of
+    gathering the wrong packed stream. Returns (rgb, flow, mask).
     """
     _no_yuv420(codec)
     if img_dim != reader.meta['img_dim']:
@@ -153,19 +163,27 @@ def fill_or_decode(reader, prefixes, img_dim, *, flow_img_name=None,
     if flow_out is not None and reader.meta['flow_img_name'] != flow_img_name:
         raise ValueError('shards packed with flow "{}", requested "{}"'
                          .format(reader.meta['flow_img_name'], flow_img_name))
+    if mask_out is not None and not reader.meta['use_mask']:
+        raise ValueError('shards packed without masks but a mask buffer '
+                         'was requested')
 
     n = len(prefixes)
     if rgb_out is None:
         rgb_out = np.zeros((n, img_dim, img_dim, 3), np.uint8)
     missing = reader.fill(prefixes, rgb_out[:n],
-                          flow_out[:n] if flow_out is not None else None)
+                          flow_out[:n] if flow_out is not None else None,
+                          mask_out[:n] if mask_out is not None else None)
     if missing:
-        rgb_t, flow_t = decode_crop_batch(
+        rgb_t, flow_t, mask_t = decode_crop_batch(
             [prefixes[i] + '.png' for i in missing], img_dim,
             flow_paths=(['{}.{}.png'.format(prefixes[i], flow_img_name)
                          for i in missing]
-                        if flow_out is not None else None))
+                        if flow_out is not None else None),
+            mask_paths=([prefixes[i] + '.mask.png' for i in missing]
+                        if mask_out is not None else None))
         rgb_out[missing] = rgb_t
         if flow_out is not None:
             flow_out[missing] = flow_t
-    return rgb_out, flow_out
+        if mask_out is not None:
+            mask_out[missing] = mask_t
+    return rgb_out, flow_out, mask_out

@@ -2,21 +2,24 @@
 
 Counterpart of `vpd_tpu/infer/apply_vpd.py` (reference
 `apply_vpd_model.py` + `FrameDataset`): every crop is embedded as the
-variants [orig, flip] and written as (frame, (k, D), {}) rows per video,
-sorted by frame. Flipped variants use flipped flow with the x channel
-negated. Only the encoder runs (the motion head is train-only).
+variants [orig, jitter x j, flip, flip-jitter x j] and written as (frame,
+(k, D), {}) rows per video, sorted by frame. Flipped variants use flipped
+flow with the x channel negated. Only the encoder runs (the motion head is
+train-only).
 
 On CUDA the host decodes each chunk into pinned uint8 buffers, a side
 stream copies them to the card, the preprocess kernel (`ops/preprocess`)
 writes the orig and flipped variants of the chunk into one (2B, H, W, C)
 bf16 channels_last buffer, and the encoder runs once over it. Decode runs
-one chunk ahead and readback one chunk behind (`core/pipeline`).
+one chunk ahead and readback one chunk behind (`core/pipeline`). With
+colour-jitter variants (`jitter` > 0) every variant is built by the plain
+transforms instead, as vpd_tpu builds them without its Pallas kernel.
 
-Not ported yet, and raising NotImplementedError: colour-jitter variants
-(ROADMAP A4), the yuv420 upload codec (A3) and the multi-device fan-out
-(A11).
+Not ported yet, and raising NotImplementedError: the yuv420 upload codec
+(ROADMAP A3) and the multi-device fan-out (A11).
 """
 
+import itertools
 import os
 import re
 
@@ -26,20 +29,19 @@ from .. import resolve_device
 from ..core import checkpoint as ckpt
 from ..core.io import load_json, store_pickle
 from ..core.pipeline import run_pipelined
+from ..data.augment import (batch_color_jitter, eval_transform_batch,
+                            flip_batch, normalize_rgb, sample_color_jitter)
 from ..data.crops import decode_crop_batch
 from ..data.shards import fill_or_decode
 from ..models.flax_weights import load_encoder_from_flax, load_motion_from_flax
 from ..ops.preprocess import preprocess_crops, preprocess_orig_and_flip
+from ..train.vpd import fold_in
 from ..train.vpd_loop import build_student
 
 EXTRACT_BATCH = 512
 
 
-def _not_ported(jitter=0, upload_codec=None, mesh=None):
-    if jitter:
-        raise NotImplementedError(
-            'colour-jitter extraction variants are training augmentation, '
-            'not ported yet (ROADMAP A4)')
+def _not_ported(upload_codec=None, mesh=None):
     if upload_codec not in (None, 'raw'):
         raise NotImplementedError(
             'upload_codec="{}" is not ported yet (ROADMAP A3: the yuv420 '
@@ -66,15 +68,21 @@ def load_student_dir(model_dir, model_epoch=None, dtype=None, device=None):
 
 
 def make_variant_embed(model, config, jitter=0, flip=True,
-                       upload_codec=None, device=None):
-    """fn(rgb_u8, flow_u8) -> (B, k, D) float32 variant embeddings.
+                       upload_codec=None, device=None, seed=0):
+    """fn(rgb_u8, flow_u8, chunk_i=0, jitter_draws=None) -> (B, k, D)
+    float32 variant embeddings.
 
     Inputs are (B, S, S, 3) uint8 tensors on `device` (flow None for RGB
-    models); variants are [orig, flip]. Moves `model` to `device` (CUDA
-    by default). On CUDA the preprocess kernel writes bf16, the kernel's
-    one output type; on the CPU the plain twin writes the encoder's type.
+    models); variants are [orig, jitter x `jitter`, flip, flip-jitter x
+    `jitter`] (the flips only with `flip`). Moves `model` to `device`
+    (CUDA by default). Without jitter, on CUDA the preprocess kernel
+    writes bf16, the kernel's one output type; on the CPU the plain twin
+    writes the encoder's type. Jitter variant j of chunk `chunk_i` draws
+    its factors from `fold_in(seed, chunk_i * jitter + j)`, unless
+    `jitter_draws` gives them (`data.augment.sample_color_jitter`'s
+    layout, one dict per variant).
     """
-    _not_ported(jitter, upload_codec)
+    _not_ported(upload_codec)
     device = resolve_device(device)
     mean, std = config['rgb_mean_std']
     use_flow = config['use_flow']
@@ -86,8 +94,12 @@ def make_variant_embed(model, config, jitter=0, flip=True,
     else:
         out_dtype = encoder.compute_dtype
 
+    if jitter:
+        return _make_jitter_embed(encoder, mean, std, use_flow, jitter, flip,
+                                  device, seed)
+
     @torch.inference_mode()
-    def fn(rgb_u8, flow_u8):
+    def fn(rgb_u8, flow_u8, chunk_i=0, jitter_draws=None):
         fl = flow_u8 if use_flow else None
         b = rgb_u8.shape[0]
         if flip:
@@ -100,6 +112,43 @@ def make_variant_embed(model, config, jitter=0, flip=True,
                 mean, std, out_dtype=out_dtype)
         embs = encoder(x.permute(0, 3, 1, 2))  # NHWC buffer, NCHW view
         return embs.reshape(x.shape[0] // b, b, -1).transpose(0, 1)
+
+    return fn
+
+
+def _make_jitter_embed(encoder, mean, std, use_flow, jitter, flip, device,
+                       seed):
+    """The plain path of `make_variant_embed` with jitter variants: each
+    variant in float32 (vpd_tpu's `make_variant_embed` without Pallas),
+    the encoder once over all of them."""
+    stats = [torch.tensor(v, dtype=torch.float32, device=device)
+             for v in (mean, std)]
+    gen = torch.Generator(device=device)
+    host_gen = torch.Generator()
+
+    @torch.inference_mode()
+    def fn(rgb_u8, flow_u8, chunk_i=0, jitter_draws=None):
+        b = rgb_u8.shape[0]
+        x = eval_transform_batch(rgb_u8, *stats,
+                                 flow_u8=flow_u8 if use_flow else None)
+        variants = [x]
+        for j in range(jitter):
+            if jitter_draws is not None:
+                draws = jitter_draws[j]
+            else:
+                s = fold_in(seed, chunk_i * jitter + j)
+                gen.manual_seed(s)
+                host_gen.manual_seed(s)
+                draws = sample_color_jitter(gen, host_gen, b)
+            xj = normalize_rgb(batch_color_jitter(
+                rgb_u8.to(torch.float32) / 255., draws), *stats)
+            if use_flow:
+                xj = torch.cat([xj, x[..., 3:]], dim=-1)
+            variants.append(xj)
+        if flip:
+            variants += [flip_batch(v, use_flow) for v in variants]
+        embs = encoder(torch.cat(variants).permute(0, 3, 1, 2))
+        return embs.reshape(len(variants), b, -1).transpose(0, 1)
 
     return fn
 
@@ -151,16 +200,17 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
               flow_img_name=None, jitter=0, no_flip=False,
               batch_size=EXTRACT_BATCH, mesh=None, log=print,
               prepared=None, embed_fn=None, shard_reader=None,
-              upload_codec=None, device=None):
+              upload_codec=None, device=None, seed=0):
     """Extract embeddings for `tasks` [(video_id, frame, path prefix)] into
     `out_dir`/<video>.emb.pkl, on `device` (CUDA by default).
 
     `prepared=(model, config)` and `embed_fn` (the `make_variant_embed`
-    contract) let repeated calls reuse the loaded weights. `shard_reader`
-    (`data.shards.ShardReader` built with crop_root) replaces PNG decode
-    with a memmap gather for packed crops.
+    contract, called as fn(rgb, flow, chunk_i)) let repeated calls reuse
+    the loaded weights. `shard_reader` (`data.shards.ShardReader` built
+    with crop_root) replaces PNG decode with a memmap gather for packed
+    crops. `seed` seeds the jitter variants' draws.
     """
-    _not_ported(jitter, upload_codec, mesh)
+    _not_ported(upload_codec, mesh)
     device = resolve_device(device)
     model, config = (prepared if prepared is not None
                      else load_student_dir(model_dir, model_epoch,
@@ -169,12 +219,13 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
     if use_flow and not flow_img_name:
         raise ValueError('model uses flow; pass flow_img_name')
     img_dim = config['img_dim']
-    if embed_fn is not None and no_flip:
+    if embed_fn is not None and (jitter or no_flip):
         raise ValueError(
-            'embed_fn bakes in its own variant set; passing no_flip '
+            'embed_fn bakes in its own variant set; passing jitter/no_flip '
             'alongside it would be silently ignored')
     embed = embed_fn if embed_fn is not None else make_variant_embed(
-        model, config, flip=not no_flip, device=device)
+        model, config, jitter=jitter, flip=not no_flip, device=device,
+        seed=seed)
     on_cuda = device.type == 'cuda'
     copy_stream = torch.cuda.Stream(device) if on_cuda else None
 
@@ -201,10 +252,14 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
                 rgb_out=rgb.numpy(), flow_out=flow_np)
         return rgb, flow
 
+    chunk_counter = itertools.count()
+
     def compute(host):
+        # runs sequentially on the calling thread (run_pipelined)
         rgb, flow = host
+        chunk_i = next(chunk_counter)
         if not on_cuda:
-            return embed(rgb, flow), None
+            return embed(rgb, flow, chunk_i), None
         # upload on a side stream so it overlaps the previous chunk's
         # encoder; the compute stream waits for it before the kernel
         compute_stream = torch.cuda.current_stream(device)
@@ -216,7 +271,7 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
         for t in (rgb, flow):
             if t is not None:
                 t.record_stream(compute_stream)
-        out = embed(rgb, flow)
+        out = embed(rgb, flow, chunk_i)
         done = torch.cuda.Event()
         done.record(compute_stream)
         return out, done

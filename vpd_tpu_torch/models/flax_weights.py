@@ -14,6 +14,10 @@ kernel (I, O) <-> weight (O, I); BN scale/bias <-> weight/bias and
 batch_stats mean/var <-> running_mean/running_var. Both directions check
 that every flax leaf is used exactly once and every torch parameter and
 buffer (bar BN's `num_batches_tracked` counter) is filled.
+
+`student_params_to_flax` / `student_params_from_flax` map one tensor per
+parameter of a student (AdamW's moments, say) the same way, to and from
+flax's `{'encoder': ..., 'motion': ...}` params trees.
 """
 
 import numpy as np
@@ -146,3 +150,60 @@ def load_motion_from_flax(head, variables):
 def motion_to_flax(head):
     """`MotionHead` -> flax `{'params': ..., 'batch_stats': {}}`."""
     return _export(head, _motion_entries(head))
+
+
+def _student_parts(student):
+    parts = [('encoder', _encoder_entries(student.encoder))]
+    if student.motion is not None:
+        parts.append(('motion', _motion_entries(student.motion)))
+    return parts
+
+
+def _param_leaves(entries):
+    """(torch leaf path, flax path, torch <- flax, flax <- torch) of each
+    parameter (not the BN statistics)."""
+    return [('{}.{}'.format(tpath, tleaf), fpath + (fleaf,), to_torch,
+             to_flax)
+            for tpath, fpath, kind in entries
+            for tleaf, coll, fleaf, to_torch, to_flax in _LEAVES[kind]
+            if coll == 'params']
+
+
+@torch.no_grad()
+def student_params_to_flax(student, values):
+    """{'encoder.conv1.weight': tensor, ...}, one tensor per parameter of
+    a `VPDStudent` -> {'encoder': tree, 'motion': tree} of numpy arrays in
+    flax's layouts and the tensors' dtypes."""
+    out = {}
+    for prefix, entries in _student_parts(student):
+        tree = out[prefix] = {}
+        for tname, fpath, _, to_flax in _param_leaves(entries):
+            t = values['{}.{}'.format(prefix, tname)].detach()
+            t = t if to_flax is None else to_flax(t)
+            node = tree
+            for name in fpath[:-1]:
+                node = node.setdefault(name, {})
+            node[fpath[-1]] = np.ascontiguousarray(t.cpu().numpy())
+    return out
+
+
+def student_params_from_flax(student, tree):
+    """Inverse of `student_params_to_flax`: {torch parameter name: tensor
+    in torch's layout}. Every leaf of `tree` must be used."""
+    out = {}
+    for prefix, entries in _student_parts(student):
+        leaves = _flatten(tree[prefix])
+        for tname, fpath, to_torch, _ in _param_leaves(entries):
+            if fpath not in leaves:
+                raise KeyError('flax leaf {}/{} missing'.format(
+                    prefix, '/'.join(fpath)))
+            arr = np.asarray(leaves.pop(fpath))
+            out['{}.{}'.format(prefix, tname)] = torch.from_numpy(
+                np.array(arr if to_torch is None else to_torch(arr)))
+        if leaves:
+            raise ValueError('unused flax leaves: {}'.format(
+                sorted('/'.join(k) for k in leaves)))
+    if set(tree) != {p for p, _ in _student_parts(student)}:
+        raise ValueError('flax components {} for a student of {}'.format(
+            sorted(tree), [p for p, _ in _student_parts(student)]))
+    return out

@@ -5,10 +5,21 @@ configurable input channels and output embedding dim. Modules take NCHW
 tensors; extraction feeds channels_last views of NHWC buffers, which
 cuDNN runs without a copy. The body computes in `dtype` (bf16 by default,
 as the JAX package computes in bf16) while the embedding head runs in
-float32 on the float32-cast pooled features, like JAX's `head_dt`.
+float32 (float64 for a float64 body) on the pooled features, like JAX's
+`head_dt`.
 
-BatchNorm: flax momentum 0.9 is torch momentum 0.1, epsilon 1e-5 in both;
-eval uses the stored running statistics as they are.
+Parameters are stored in `param_dtype`, the compute dtype by default
+(extraction casts the body to bf16 once). The trainer keeps float32
+master parameters and BN statistics and computes in bf16, as flax's
+`dtype=bfloat16` with float32 `param_dtype` does: each conv casts its
+input and kernel to the compute dtype, and BatchNorm computes its
+statistics and affine in float32 and returns the compute dtype.
+
+BatchNorm follows flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`, not
+torch's: in train mode it normalizes with the biased batch variance and
+updates `running = 0.9 * running + (1 - 0.9) * stat` with the biased
+variance too (torch would fold in the unbiased one). Eval uses the stored
+running statistics as they are.
 
 `expand_stem_to_channels` reproduces the reference's 5-channel first-conv
 surgery (`models/rgb.py:8-37`) on a module: the stem kernel is averaged
@@ -19,16 +30,60 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+FLAX_BN_MOMENTUM = 0.9
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (same state-dict names) with flax's train mode.
+
+    Train mode normalizes with the batch mean and biased variance, which
+    F.batch_norm computes in float32 or wider for any input dtype, and
+    updates the running statistics with that same biased variance, as
+    `running = m * running + (1 - m) * stat` with flax's momentum
+    m = 1 - `self.momentum` (so `self.momentum = 1` keeps this batch). An
+    input of another dtype than the parameters (bf16 activations, float32
+    master parameters) comes back in its own dtype.
+    """
+
+    def __init__(self, channels):
+        super().__init__(channels, eps=1e-5, momentum=1 - FLAX_BN_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # momentum 1 writes this batch's mean and unbiased variance into
+        # the temporaries, which is how F.batch_norm hands them out
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        m = 1 - self.momentum  # flax's momentum, 0.9 unless changed
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var
+                                   + (1 - m) * (var * ((n - 1) / n)))
+        return y
+
+
+class CastConv2d(nn.Conv2d):
+    """`nn.Conv2d` whose kernel is cast to the input's dtype at each call
+    (float32 master weights, bf16 compute)."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
 def _bn(channels):
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return FlaxBatchNorm2d(channels)
 
 
 def _conv(cin, cout, kernel, stride=1):
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
-                     bias=False)
+    return CastConv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
+                      bias=False)
 
 
 class BasicBlock(nn.Module):
@@ -83,8 +138,8 @@ class ResNet(nn.Module):
     def __init__(self, layers, block, output_dim, in_channels=3,
                  width_per_group=64):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3,
-                               bias=False)
+        self.conv1 = CastConv2d(in_channels, 64, 7, stride=2, padding=3,
+                                bias=False)
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes = 64
@@ -104,6 +159,7 @@ class ResNet(nn.Module):
             stages.append(nn.Sequential(*blocks))
         self.layer1, self.layer2, self.layer3, self.layer4 = stages
         self.fc = nn.Linear(inplanes, output_dim)
+        self.compute_dtype = torch.float32
         self._init_weights()
 
     def _init_weights(self):
@@ -120,21 +176,23 @@ class ResNet(nn.Module):
             self.fc.in_features))
         nn.init.zeros_(self.fc.bias)
 
-    @property
-    def compute_dtype(self):
-        return self.conv1.weight.dtype
-
-    def set_compute_dtype(self, dtype):
-        """Cast the body to `dtype`; the head stays float32."""
+    def set_compute_dtype(self, dtype, param_dtype=None):
+        """Compute the body in `dtype`, storing its parameters and BN
+        statistics in `param_dtype` (default `dtype`); the head's are
+        stored and computed in the wider of that and float32."""
+        param_dtype = dtype if param_dtype is None else param_dtype
+        head_dtype = torch.promote_types(param_dtype, torch.float32)
         for name, child in self.named_children():
-            child.to(torch.float32 if name == 'fc' else dtype)
+            child.to(head_dtype if name == 'fc' else param_dtype)
+        self.compute_dtype = dtype
         return self
 
     def forward(self, x):
         x = x.to(self.compute_dtype)
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        x = x.mean(dim=(2, 3), dtype=torch.float32)  # global average pool
+        # global average pool, accumulated in the head's dtype
+        x = x.mean(dim=(2, 3), dtype=self.fc.weight.dtype)
         return self.fc(x)
 
 
@@ -158,12 +216,14 @@ ENCODER_ARCH = {
 }
 
 
-def build_encoder(arch, emb_dim, in_channels=3, dtype=torch.bfloat16):
-    """Build the VPD student backbone by registry name."""
+def build_encoder(arch, emb_dim, in_channels=3, dtype=torch.bfloat16,
+                  param_dtype=None):
+    """Build the VPD student backbone by registry name (parameters in
+    `param_dtype`, by default `dtype`)."""
     cfg = ENCODER_ARCH[arch]
     model = ResNet(cfg.layers, cfg.block, emb_dim, in_channels=in_channels,
                    width_per_group=cfg.width_per_group)
-    return model.set_compute_dtype(dtype)
+    return model.set_compute_dtype(dtype, param_dtype)
 
 
 @torch.no_grad()
@@ -173,9 +233,9 @@ def expand_stem_to_channels(model, num_channels):
     Modifies `model` in place and returns it."""
     old = model.conv1
     mean = old.weight.mean(dim=1, keepdim=True)
-    new = nn.Conv2d(num_channels, old.out_channels, old.kernel_size,
-                    stride=old.stride, padding=old.padding, bias=False,
-                    device=old.weight.device, dtype=old.weight.dtype)
+    new = CastConv2d(num_channels, old.out_channels, old.kernel_size,
+                     stride=old.stride, padding=old.padding, bias=False,
+                     device=old.weight.device, dtype=old.weight.dtype)
     new.weight.copy_(mean.expand(-1, num_channels, -1, -1))
     model.conv1 = new
     return model

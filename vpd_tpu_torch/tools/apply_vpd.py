@@ -28,8 +28,8 @@ def get_args():
     parser.add_argument('-o', '--out_dir', type=str, required=True)
     parser.add_argument('-m', '--model_epoch', type=int)
     parser.add_argument('--jitter', type=int, default=0,
-                        help='colour-jitter variants: not ported yet '
-                             '(ROADMAP A4), must be 0')
+                        help='colour-jitter variants per crop (and per '
+                             'flip); built by the plain transforms')
     parser.add_argument('--no_flip', action='store_true')
     parser.add_argument('--flow_img', type=str)
     parser.add_argument('--batch_size', type=int, default=512)
