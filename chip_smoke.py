@@ -49,6 +49,21 @@ line each; any failure raises and exits non-zero:
              end on a synthetic fs corpus in raw shards (2 epochs at the
              default batch of 100, --resume to 3), its checkpoints read
              back, and `best_epoch` extracted through `apply_vpd`
+  cache      the student's training input: a raw-shard corpus of 24,000
+             crops with flow and masks (2.75 GB, one virtual epoch)
+             staged in the device crop cache (seconds, GB/s, peak memory
+             held to the corpus plus one shard, rows read back byte for
+             byte); the cached step at B = 2048 (ms, gather ms beside its
+             byte bound, crops/s) beside the train phase's streamed
+             step, and one step of each path on the same rows with cuDNN
+             deterministic (loss rel 1e-6, parameters max rel 1e-5); the
+             CLI with --hbm_cache (3 epochs, --resume to 4) beside the
+             streamed CLI's epochs, and one epoch with --num_workers 2;
+             `best_epoch` extracted through `apply_vpd` (B1 launches)
+             against f32 weights (ROADMAP C2: min row cosine, mean
+             pairwise cosines); 600 PNG crops decoded by the native
+             decoder (where it builds) and cv2, and packed by
+             `tools/pack_crops`, read back equal
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
@@ -56,6 +71,7 @@ kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
 """
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -71,6 +87,10 @@ import torch
 
 from vpd_tpu_torch.core.io import store_embs_pickle
 from vpd_tpu_torch.data import augment as aug
+from vpd_tpu_torch.data import crops as crops_mod
+from vpd_tpu_torch.data import native_loader
+from vpd_tpu_torch.data.crops import CropBatchSource
+from vpd_tpu_torch.data.hbm_cache import CacheIndexSource, DeviceCropCache
 from vpd_tpu_torch.data.shards import ShardReader, write_raw_shards
 from vpd_tpu_torch.datasets.eval_splits import FS_TEST_PREFIXES
 from vpd_tpu_torch.datasets.metadata_cache import load_meta_cache
@@ -82,8 +102,11 @@ from vpd_tpu_torch.ops import dtw_kernel as dtwk
 from vpd_tpu_torch.ops import preprocess as pre
 from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
 from vpd_tpu_torch.tasks import neighbors as nb
+from vpd_tpu_torch.tools import pack_crops as pack_cli
 from vpd_tpu_torch.tools import recognize as recognize_cli
-from vpd_tpu_torch.train.vpd import (create_state, forward_backward,
+from vpd_tpu_torch.train.vpd import (cache_gather, create_state,
+                                     forward_backward,
+                                     make_cached_train_step,
                                      make_train_step, optimizer_step)
 from vpd_tpu_torch.train.vpd_loop import (build_student, default_config,
                                           save_student)
@@ -123,6 +146,11 @@ TRAIN_RING = 4             # distinct batches the timed steps cycle over
 TRAIN_WARMUP, TRAIN_STEPS, FIT_STEPS = 3, 10, 10
 CLI_VIDEOS, CLI_FRAMES = 4, 300
 CLI_EPOCHS = 2
+CACHE_VIDEOS, CACHE_FRAMES = 40, 600  # 24,000 crops: one virtual epoch
+CACHE_CHECK_ROWS = 512
+CACHE_LOSS_RTOL, CACHE_PARAM_RTOL = 1e-6, 1e-5
+CLI_CACHE_EPOCHS = 3
+PNG_VIDEOS, PNG_FRAMES = 2, 300
 
 
 def emit(obj):
@@ -1133,6 +1161,326 @@ def phase_train(card):
         'losses': [[r['train'], r['val']] for r in losses],
         'extracted_rows': len(embs['video0'])}
     emit(result)
+    return {'step': result['step'], 'cli_epoch_seconds': epoch_s,
+            'root': root, 'emb_dir': emb_dir, 'shard_dir': shard_dir,
+            'sports': sports}
+
+
+def _write_cache_corpus(root, gen, rng):
+    """Raw shards (rgb, flow, masks) of CACHE_VIDEOS x CACHE_FRAMES random
+    crops, made on the card, and the (video, None, frame, (2, 64) target)
+    samples over them: (shard_dir, crop_dir, keys, samples)."""
+    n = CACHE_VIDEOS * CACHE_FRAMES
+    dev = torch.device('cuda')
+    keys = ['video{}/{}'.format(v, f) for v in range(CACHE_VIDEOS)
+            for f in range(CACHE_FRAMES)]
+    shard_dir = os.path.join(root, 'shards')
+    write_raw_shards(
+        shard_dir, keys,
+        torch.randint(0, 256, (n, IMG, IMG, 3), generator=gen, device=dev,
+                      dtype=torch.uint8).cpu().numpy(),
+        flow=torch.randint(0, 256, (n, IMG, IMG, 3), generator=gen,
+                           device=dev, dtype=torch.uint8).cpu().numpy(),
+        flow_img_name='flow',
+        mask=((torch.rand((n, IMG, IMG), generator=gen, device=dev) > 0.5)
+              .to(torch.uint8) * 255).cpu().numpy())
+    targets = rng.normal(0, 1, (n, 2, 2 * EMB)).astype(np.float32)
+    samples = [('video{}'.format(v), None, f,
+                targets[v * CACHE_FRAMES + f])
+               for v in range(CACHE_VIDEOS) for f in range(CACHE_FRAMES)]
+    return shard_dir, os.path.join(root, 'crops'), keys, samples
+
+
+def _stage_cache(shard_dir, crop_dir, keys, rng):
+    """The staging run: the cache, its seconds, bytes and peak memory over
+    what was allocated before, each held to the corpus plus one shard,
+    and CACHE_CHECK_ROWS random rows read back against the shards."""
+    reader = ShardReader(shard_dir, crop_root=crop_dir)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = DeviceCropCache(reader, use_flow=True, device='cuda',
+                            log=lambda *a: None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    shard = max(sum(s[i].nbytes for s in (reader._rgb, reader._flow,
+                                          reader._mask))
+                for i in range(len(reader._rgb)))
+    if peak > cache.nbytes + shard:
+        raise AssertionError('staging peaked at {} B, over the corpus {} B '
+                             'plus one shard {} B'.format(peak, cache.nbytes,
+                                                          shard))
+    rows = np.sort(rng.choice(len(keys), CACHE_CHECK_ROWS, replace=False))
+    want = {'rgb': np.zeros((len(rows), IMG, IMG, 3), np.uint8),
+            'flow': np.zeros((len(rows), IMG, IMG, 3), np.uint8),
+            'mask': np.zeros((len(rows), IMG, IMG), np.uint8)}
+    if reader.fill([keys[i] for i in rows], want['rgb'], want['flow'],
+                   want['mask']):
+        raise AssertionError('rows missing from the shards')
+    idx = torch.from_numpy(rows).cuda()
+    for k, v in want.items():
+        if not np.array_equal(cache.arrays[k].index_select(0, idx).cpu()
+                              .numpy(), v):
+            raise AssertionError('cache rows differ from the shards ({})'
+                                 .format(k))
+    return cache, {'crops': len(keys), 'bytes': cache.nbytes,
+                   'bytes_per_crop': cache.nbytes // len(keys),
+                   'shards': len(reader._rgb), 'seconds': secs,
+                   'GBps': cache.nbytes / secs / 1e9, 'peak_bytes': peak,
+                   'peak_limit_bytes': cache.nbytes + shard,
+                   'rows_checked': len(rows)}
+
+
+def _cached_vs_streamed(model, cfg, cache, samples, shard_dir, crop_dir):
+    """One step of each path from copies of `model`, on the same rows and
+    seed, cuDNN deterministic: (loss rel diff, max param rel diff)."""
+    kw = dict(target_len=TRAIN_B, flow_img_name='flow', seed=SEED + 7)
+    batch = CropBatchSource(samples, crop_dir, IMG, TRAIN_B,
+                            shard_dir=shard_dir, use_native=False,
+                            **kw).next_batch()
+    ibatch = CacheIndexSource(samples, crop_dir, IMG, TRAIN_B, cache=cache,
+                              **kw).next_batch()
+    step_kw = dict(img_dim=IMG, use_flow=True, aug_dtype=torch.bfloat16)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        out = []
+        for make, b, extra in (
+                (make_train_step, batch, ()),
+                (make_cached_train_step, ibatch, (cache.arrays,))):
+            twin = copy.deepcopy(model)
+            state = create_state(twin, cfg['learning_rate'])
+            step = make(*cfg['rgb_mean_std'], **step_kw)
+            m = step(state, {k: torch.from_numpy(v).cuda()
+                             for k, v in b.items()}, SEED + 1, *extra)
+            out.append((float(m['emb_loss_sum']), twin))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    (loss_s, a), (loss_c, b) = out
+    param_rel = max(((p - q).abs().max() / p.abs().max().clamp_min(1e-30))
+                    .item() for p, q in zip(a.parameters(), b.parameters()))
+    return abs(loss_c - loss_s) / abs(loss_s), param_rel
+
+
+def _cached_step_on_card(cache, samples, shard_dir, crop_dir):
+    """The cached step at TRAIN_B: ms per step (CUDA events) and crops/s,
+    the gather alone, and the cached-vs-streamed equality check."""
+    cfg = default_config('fs', EMB, img_dim=IMG, use_flow=True, motion=True,
+                         encoder_arch='resnet34')
+    torch.manual_seed(SEED)
+    model = build_student(cfg, dtype=torch.bfloat16,
+                          param_dtype=torch.float32).cuda()
+    model.to(memory_format=torch.channels_last)
+    loss_rel, param_rel = _cached_vs_streamed(model, cfg, cache, samples,
+                                              shard_dir, crop_dir)
+    if not (loss_rel <= CACHE_LOSS_RTOL and param_rel <= CACHE_PARAM_RTOL):
+        raise AssertionError('cached and streamed steps differ: loss rel {}, '
+                             'params max rel {}'.format(loss_rel, param_rel))
+
+    state = create_state(model, cfg['learning_rate'])
+    step = make_cached_train_step(*cfg['rgb_mean_std'], img_dim=IMG,
+                                  use_flow=True, use_mask=True,
+                                  aug_dtype=torch.bfloat16)
+    src = CacheIndexSource(samples, crop_dir, IMG, TRAIN_B,
+                           target_len=TRAIN_B * TRAIN_RING,
+                           flow_img_name='flow', seed=SEED, cache=cache)
+    ring = [{k: torch.from_numpy(v).cuda() for k, v in
+             src.next_batch().items()} for _ in range(TRAIN_RING)]
+    for i in range(TRAIN_WARMUP):
+        step(state, ring[i % TRAIN_RING], SEED + 1, cache.arrays)
+    torch.cuda.synchronize()
+    marks = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        m = step(state, ring[i % TRAIN_RING], SEED + 1, cache.arrays)
+        ev[1].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not np.isfinite(float(m['emb_loss_sum'])):
+        raise AssertionError('cached step loss is not finite')
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in marks)
+    idx = ring[0]['idx']
+    gather_ms = cuda_ms(lambda: cache_gather(cache.arrays, idx,
+                                             ('rgb', 'flow', 'mask')))
+    gather_bytes = 2 * TRAIN_B * (cache.nbytes // len(samples))
+    return {'batch': TRAIN_B, 'device_ms_per_step': step_ms,
+            'host_ms_per_step': wall / TRAIN_STEPS * 1e3,
+            'crops_per_s': TRAIN_B * TRAIN_STEPS / wall,
+            'gather_ms': gather_ms, 'gather_bytes': gather_bytes,
+            'gather_bound_ms': gather_bytes / HBM_BYTES_PER_S * 1e3,
+            'vs_streamed_loss_rel_diff': loss_rel,
+            'vs_streamed_param_max_rel_diff': param_rel}
+
+
+def _embedding_spread(save, shard_dir, crop_dir, out):
+    """ROADMAP C2 on a trained student: `best_epoch` extracted through
+    `apply_vpd` (bf16, B1) against the same weights in f32 over video0's
+    crops: min row cosine, and the mean pairwise cosine of each."""
+    tasks = [(0, f, os.path.join(crop_dir, 'video0', str(f)))
+             for f in range(CLI_FRAMES)]
+    reader = ShardReader(shard_dir, crop_root=crop_dir)
+    pre.launches = 0
+    ap.apply_vpd(['video0'], tasks, save, out, flow_img_name='flow',
+                 shard_reader=reader, log=lambda *a: None)
+    launches = pre.launches
+    if launches < 1:
+        raise AssertionError('extraction did not launch the preprocess '
+                             'kernel')
+    embs = _load_embs(out)
+    _check_rows(embs, range(CLI_FRAMES))
+    rgb = np.zeros((CLI_FRAMES, IMG, IMG, 3), np.uint8)
+    flow = np.zeros_like(rgb)
+    reader.fill([t[2] for t in tasks], rgb, flow)
+    mean, std = default_config('fs', EMB)['rgb_mean_std']
+    ref = _reference(save, rgb, flow, True, mean, std)
+    got = np.stack([e for _, e, _ in embs['video0']])
+    cos, matched = _cosines(got, ref)
+
+    def mean_pairwise(x):
+        x = torch.from_numpy(x[:, 0]).cuda().double()
+        x = x / x.norm(dim=1, keepdim=True)
+        c = x @ x.T
+        n = len(x)
+        return float((c.sum() - c.diagonal().sum()) / (n * (n - 1)))
+
+    return {'preprocess_launches': launches, 'min_row_cosine_bf16_vs_f32':
+            cos, 'rows_nearest_own_reference': matched,
+            'mean_pairwise_cosine_f32': mean_pairwise(ref),
+            'mean_pairwise_cosine_bf16': mean_pairwise(got),
+            'bar': COS_BAR, 'bar_holds': cos >= COS_BAR}
+
+
+def _cached_cli(train, env):
+    """The CLI from the cache (CLI_CACHE_EPOCHS, then --resume one more)
+    and with 2 decode workers (one epoch) on the train phase's corpus."""
+    common = ['fs', '--emb_dir', train['emb_dir'], '--crop_shards',
+              train['shard_dir'], '--flow_img', 'flow', '--motion',
+              '--checkpoint_frequency', '1']
+    save = os.path.join(train['root'], 'run_cache')
+    first = _train_cli(common + ['--save_dir', save, '--hbm_cache',
+                                 '--num_epochs', str(CLI_CACHE_EPOCHS)], env)
+    resumed = _train_cli(common + ['--save_dir', save, '--hbm_cache',
+                                   '--num_epochs', str(CLI_CACHE_EPOCHS + 1),
+                                   '--resume'], env)
+    with open(os.path.join(save, 'loss.json')) as fp:
+        losses = json.load(fp)
+    if [r['epoch'] for r in losses] != list(range(1, CLI_CACHE_EPOCHS + 2)) \
+            or not np.isfinite([[r['train'], r['val']]
+                                for r in losses]).all():
+        raise AssertionError('loss.json: {}'.format(losses))
+    last = 'epoch{:04d}'.format(CLI_CACHE_EPOCHS + 1)
+    want = ['best_epoch.encoder.ckpt'] + ['{}.{}.ckpt'.format(last, c) for c
+                                          in ('encoder', 'decoder',
+                                              'optimizer')]
+    missing = [f for f in want if not os.path.exists(os.path.join(save, f))]
+    if missing:
+        raise AssertionError('train_vpd --hbm_cache wrote no {}'.format(
+            missing))
+    workers = _train_cli(common + ['--save_dir', os.path.join(
+        train['root'], 'run_workers'), '--num_workers', '2',
+        '--num_epochs', '1'], env)
+    epoch_s = first[1] + resumed[1]
+    per_epoch = 100 * (200 + 40)
+    return save, {
+        'batch': 100, 'epochs': len(epoch_s),
+        'run_seconds': [first[0], resumed[0]], 'epoch_seconds': epoch_s,
+        'crops_per_s_per_epoch': [per_epoch / s for s in epoch_s],
+        'streamed_epoch_seconds': train['cli_epoch_seconds'],
+        'losses': [[r['train'], r['val']] for r in losses],
+        'workers_2': {'run_seconds': workers[0],
+                      'epoch_seconds': workers[1]}}
+
+
+def _png_input(root, rng):
+    """PNG_VIDEOS x PNG_FRAMES crops written as PNGs (rgb, flow, masks):
+    both decoders timed over the tree, and pack_crops run on it, its
+    shards read back against the arrays written."""
+    import cv2
+
+    crop_dir = os.path.join(root, 'crops')
+    n = PNG_VIDEOS * PNG_FRAMES
+    rgb = rng.integers(0, 256, (n, IMG, IMG, 3), np.uint8)
+    flow = rng.integers(0, 256, (n, IMG, IMG, 3), np.uint8)
+    mask = ((rng.random((n, IMG, IMG)) > 0.5) * 255).astype(np.uint8)
+    prefixes = []
+    for i in range(n):
+        d = os.path.join(crop_dir, 'video{}'.format(i // PNG_FRAMES))
+        os.makedirs(d, exist_ok=True)
+        p = os.path.join(d, str(i % PNG_FRAMES))
+        cv2.imwrite(p + '.png', np.ascontiguousarray(rgb[i][..., ::-1]))
+        cv2.imwrite(p + '.flow.png', flow[i])  # raw order, as read back
+        cv2.imwrite(p + '.mask.png', mask[i])
+        prefixes.append(p)
+
+    native = native_loader.available()
+    rates, decoded = {}, {}
+    for name in (['native'] if native else []) + ['cv2']:
+        t0 = time.perf_counter()
+        decoded[name] = crops_mod.decode_crop_batch(
+            [p + '.png' for p in prefixes], IMG,
+            flow_paths=[p + '.flow.png' for p in prefixes],
+            mask_paths=[p + '.mask.png' for p in prefixes],
+            use_native=name == 'native')
+        rates[name] = n / (time.perf_counter() - t0)
+        for got, want in zip(decoded[name], (rgb, flow, mask)):
+            if not np.array_equal(got, want):
+                raise AssertionError('the {} decoder disagrees with the '
+                                     'PNGs written'.format(name))
+
+    shard_dir = os.path.join(root, 'shards')
+    before = dict(crops_mod.decoder_calls)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        packed = pack_cli.main(crop_dir, shard_dir, IMG, 'flow', False,
+                               4096, 'raw')
+    pack_s = time.perf_counter() - t0
+    ran = [k for k in before if crops_mod.decoder_calls[k] > before[k]]
+    reader = ShardReader(shard_dir, crop_root=crop_dir)
+    back = (np.zeros_like(rgb), np.zeros_like(flow), np.zeros_like(mask))
+    if packed != n or reader.fill(prefixes, *back) or not all(
+            np.array_equal(a, b) for a, b in zip(back, (rgb, flow, mask))):
+        raise AssertionError('pack_crops shards differ from the PNGs')
+    return {'crops': n, 'native_decoder_built': native,
+            'decode_crops_per_s': rates, 'pack_decoder': ran,
+            'pack_seconds': pack_s, 'pack_crops_per_s': n / pack_s}
+
+
+def phase_cache(card, train):
+    """The student's training input: staging the device crop cache, the
+    cached step, the CLI from the cache and with decode workers, ROADMAP
+    C2 on the student it trained, and the PNG decoders and pack_crops."""
+    rng = np.random.default_rng(SEED + 3)
+    root = os.path.join(WORK, 'cache')
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    shard_dir, crop_dir, keys, samples = _write_cache_corpus(
+        root, torch.Generator(device='cuda').manual_seed(SEED + 3), rng)
+    corpus_s = time.perf_counter() - t0
+    cache, staging = _stage_cache(shard_dir, crop_dir, keys, rng)
+    staging['corpus_seconds'] = corpus_s
+    step = _cached_step_on_card(cache, samples, shard_dir, crop_dir)
+    step['streamed_device_ms_per_step'] = train['step']['device_ms_per_step']
+    step['streamed_crops_per_s'] = train['step']['crops_per_s']
+    del cache
+    shutil.rmtree(shard_dir)
+
+    env = dict(os.environ, VPD_SPORTS_DIR=train['sports'])
+    save, cli = _cached_cli(train, env)
+    crop_dir = os.path.join(train['sports'], 'fs', 'crops')
+    c2 = _embedding_spread(save, train['shard_dir'], crop_dir,
+                           os.path.join(train['root'], 'embs_cache'))
+    png = _png_input(os.path.join(root, 'png'), rng)
+    emit({'phase': 'cache', 'card': card, 'staging': staging,
+          'step': step, 'cli': cli, 'c2': c2, 'png': png})
 
 
 def main():
@@ -1150,7 +1498,7 @@ def main():
                'max_abs_err': dtw_abs, 'max_rel_err': dtw_rel,
                **phase_recognize(card), 'library_ms': None}
         preprocess['launches'] = phase_slice(card)
-        phase_train(card)
+        phase_cache(card, phase_train(card))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card)

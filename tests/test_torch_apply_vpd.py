@@ -332,11 +332,11 @@ def test_decoders_agree_and_keep_raw_flow_order(world, monkeypatch):
     png_flow = np.stack([np.asarray(Image.open(p)) for p in flow_paths])
     np.testing.assert_array_equal(ref_flow, png_flow[..., ::-1])
 
-    cv_rgb, cv_flow, _ = tcrops.decode_crop_batch(rgb_paths, IMG,
-                                                  flow_paths=flow_paths)
+    cv_rgb, cv_flow, _ = tcrops.decode_crop_batch(
+        rgb_paths, IMG, flow_paths=flow_paths, use_native=False)
     monkeypatch.setattr(tcrops, '_cv2', lambda: None)
-    pil_rgb, pil_flow, _ = tcrops.decode_crop_batch(rgb_paths, IMG,
-                                                    flow_paths=flow_paths)
+    pil_rgb, pil_flow, _ = tcrops.decode_crop_batch(
+        rgb_paths, IMG, flow_paths=flow_paths, use_native=False)
     for rgb, flow in ((cv_rgb, cv_flow), (pil_rgb, pil_flow)):
         np.testing.assert_array_equal(rgb, ref_rgb)
         np.testing.assert_array_equal(flow, ref_flow)

@@ -25,21 +25,34 @@ running statistics at rtol 1e-4, parameters within 2.5 x lr (Adam's first
 step is about lr x sign(g), and near-zero gradients may round to another
 sign). The bf16 step keeps float32 master weights, makes no host sync and
 lowers the loss on one batch.
+
+The device crop cache holds the shards' bytes on the card, its staging
+peaks at the corpus plus at most one shard, and the cached step gathers
+without a host sync; with cuDNN deterministic, the cached and streamed
+steps on the same rows give the same loss (rel 1e-6) and parameters (max
+rel 1e-5); the CLI trains one epoch from the cache on the card.
 """
 
 import copy
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from vpd_tpu_torch.core.io import store_embs_pickle
 from vpd_tpu_torch.data.augment import (sample_train_augment,
                                         train_augment_batch)
+from vpd_tpu_torch.data.crops import CropBatchSource
+from vpd_tpu_torch.data.hbm_cache import CacheIndexSource, DeviceCropCache
+from vpd_tpu_torch.data.shards import ShardReader, write_raw_shards
 from vpd_tpu_torch.ops import _build
 from vpd_tpu_torch.ops import dtw_kernel as tdtw
 from vpd_tpu_torch.ops import preprocess as tpre
 from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
 from vpd_tpu_torch.train import vpd as tvpd
+from vpd_tpu_torch.tools import train_vpd as tcli
 from vpd_tpu_torch.train.vpd_loop import build_student, default_config
 
 MEAN = (0.45, 0.47, 0.46)
@@ -430,3 +443,154 @@ def test_bf16_train_step_on_card(cuda_device):
             assert torch.equal(got, state.optimizer.state[p][key])
     step(fresh, batch, 0)
     assert fresh.step == 9
+
+
+def _cache_corpus(root, n_videos=2, n_frames=24, emb=8, rows_per_shard=10):
+    """Teacher .emb.pkl files ((2, emb) rows) and raw shards with rgb,
+    flow and masks of their crops: (emb_dir, shard_dir, crop_dir)."""
+    rng = np.random.default_rng(0)
+    emb_dir = os.path.join(root, 'embs')
+    os.makedirs(emb_dir)
+    keys = []
+    for v in range(n_videos):
+        store_embs_pickle(
+            os.path.join(emb_dir, 'video{}.emb.pkl'.format(v)),
+            [(f, rng.normal(size=(2, emb)).astype(np.float32),
+              {'dp_score': 0.9}) for f in range(n_frames)])
+        keys += ['video{}/{}'.format(v, f) for f in range(n_frames)]
+    n = len(keys)
+    shard_dir = os.path.join(root, 'shards')
+    write_raw_shards(
+        shard_dir, keys, rng.integers(0, 256, (n, S, S, 3), np.uint8),
+        flow=rng.integers(0, 256, (n, S, S, 3), np.uint8),
+        flow_img_name='flow',
+        mask=((rng.random((n, S, S)) > 0.5) * 255).astype(np.uint8),
+        rows_per_shard=rows_per_shard)
+    return emb_dir, shard_dir, os.path.join(root, 'crops')
+
+
+def _samples(emb=8):
+    """(video, None, frame, (2, 2 emb) targets) of `_cache_corpus`'s
+    crops."""
+    rng = np.random.default_rng(1)
+    return [('video{}'.format(v), None, f,
+             rng.normal(size=(2, 2 * emb)).astype(np.float32))
+            for v in range(2) for f in range(24)]
+
+
+@pytest.mark.cuda
+def test_device_cache_on_card_holds_the_shards(cuda_device, tmp_path):
+    _, shard_dir, crop_dir = _cache_corpus(str(tmp_path))
+    reader = ShardReader(shard_dir, crop_root=crop_dir)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cache = DeviceCropCache(reader, use_flow=True, device=cuda_device,
+                            log=lambda *a: None)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= cache.nbytes + max(s.nbytes for s in reader._rgb), peak
+    streams = {'rgb': reader._rgb, 'flow': reader._flow,
+               'mask': reader._mask}
+    assert sorted(cache.arrays) == ['flow', 'mask', 'rgb']
+    for k, t in cache.arrays.items():
+        assert t.is_cuda and t.dtype == torch.uint8
+        np.testing.assert_array_equal(t.cpu().numpy(),
+                                      np.concatenate(streams[k]), err_msg=k)
+
+
+def _cached_and_streamed(cuda_device, tmp_path, b=16):
+    """A cache on the card, and the streamed and index sources over the
+    same shards with the same seed."""
+    _, shard_dir, crop_dir = _cache_corpus(str(tmp_path))
+    cache = DeviceCropCache(ShardReader(shard_dir, crop_root=crop_dir),
+                            use_flow=True, device=cuda_device,
+                            log=lambda *a: None)
+    samples = _samples()
+    kw = dict(target_len=4 * b, flow_img_name='flow', seed=3)
+    return (cache,
+            CropBatchSource(samples, crop_dir, S, b, shard_dir=shard_dir,
+                            use_native=False, **kw),
+            CacheIndexSource(samples, crop_dir, S, b, cache=cache, **kw))
+
+
+def _student(cuda_device, emb=8):
+    cfg = default_config('fs', emb, img_dim=S, use_flow=True, motion=True,
+                         encoder_arch='resnet18')
+    torch.manual_seed(0)
+    model = build_student(cfg, dtype=torch.bfloat16,
+                          param_dtype=torch.float32).to(cuda_device)
+    model.to(memory_format=torch.channels_last)
+    return cfg, model
+
+
+@pytest.mark.cuda
+def test_cached_step_equals_streamed_step_on_card(cuda_device, tmp_path):
+    cache, streamed, indexed = _cached_and_streamed(cuda_device, tmp_path)
+    cfg, model = _student(cuda_device)
+    twin = copy.deepcopy(model)
+    kw = dict(img_dim=S, use_flow=True, aug_dtype=torch.bfloat16)
+    step = tvpd.make_train_step(*cfg['rgb_mean_std'], **kw)
+    cached = tvpd.make_cached_train_step(*cfg['rgb_mean_std'], **kw)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        states = (tvpd.create_state(model, 1e-3),
+                  tvpd.create_state(twin, 1e-3))
+        batch = {k: torch.from_numpy(v).to(cuda_device)
+                 for k, v in streamed.next_batch().items()}
+        ibatch = {k: torch.from_numpy(v).to(cuda_device)
+                  for k, v in indexed.next_batch().items()}
+        a = float(step(states[0], batch, 5)['emb_loss_sum'])
+        b = float(cached(states[1], ibatch, 5, cache.arrays)['emb_loss_sum'])
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    assert abs(a - b) <= 1e-6 * abs(a), (a, b)
+    for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+        rel = ((p - q).abs().max() / p.abs().max().clamp_min(1e-30)).item()
+        assert rel <= 1e-5, (name, rel)
+
+
+@pytest.mark.cuda
+def test_cached_step_makes_no_host_sync(cuda_device, tmp_path):
+    cache, _, indexed = _cached_and_streamed(cuda_device, tmp_path)
+    cfg, model = _student(cuda_device)
+    state = tvpd.create_state(model, 1e-3)
+    step = tvpd.make_cached_train_step(*cfg['rgb_mean_std'], img_dim=S,
+                                       use_flow=True,
+                                       aug_dtype=torch.bfloat16)
+    batches = [{k: torch.from_numpy(v).to(cuda_device)
+                for k, v in indexed.next_batch().items()} for _ in range(4)]
+    losses = [step(state, batches[0], 0, cache.arrays)['emb_loss_sum']]
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for batch in batches[1:]:
+            losses.append(step(state, batch, 0, cache.arrays)['emb_loss_sum'])
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert np.isfinite(torch.stack(losses).tolist()).all()
+    assert state.step == 4
+
+
+@pytest.mark.cuda
+def test_cli_trains_from_the_cache_on_card(cuda_device, tmp_path,
+                                           monkeypatch):
+    emb_dir, shard_dir, crop_dir = _cache_corpus(str(tmp_path))
+    monkeypatch.setitem(tcli.CROP_DIRS, 'fs', crop_dir)
+    monkeypatch.setattr(tcli, 'TRAIN_LEN', 32)
+    monkeypatch.setattr(tcli, 'VAL_LEN', 16)
+    save = str(tmp_path / 'run')
+    trainer = tcli.main(
+        dataset='fs', save_dir=save, checkpoint_frequency=1, num_epochs=1,
+        batch_size=8, learning_rate=5e-4, img_dim=S, flow_img='flow',
+        motion=True, encoder_arch='resnet18', model_select_window=5,
+        pretrained=False, no_test_video=False, min_pose_score=None,
+        emb_dir=emb_dir, seed=0, crop_shards=shard_dir, hbm_cache=True)
+    assert trainer.cache is not None and trainer.cache['rgb'].is_cuda
+    assert trainer.state.step == 4
+    with open(os.path.join(save, 'loss.json')) as fp:
+        losses = json.load(fp)
+    assert np.isfinite([losses[0]['train'], losses[0]['val']]).all()
+    assert os.path.exists(os.path.join(save, 'epoch0001.optimizer.ckpt'))

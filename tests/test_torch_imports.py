@@ -42,7 +42,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert 'vpd_tpu_torch.tools.apply_vpd' in out['modules']
     for name in ('tasks.recognize', 'tools.recognize', 'ops.dtw_kernel',
                  'train.vpd', 'train.vpd_loop', 'tools.train_vpd',
-                 'core.metrics'):
+                 'core.metrics', 'data.hbm_cache', 'data.native_loader',
+                 'data.parallel_batcher', 'models.torch_compat',
+                 'tools.pack_crops'):
         assert 'vpd_tpu_torch.' + name in out['modules']
     assert out['loaded'] == []
 

@@ -14,7 +14,8 @@
 - Checkpoints in both directions, optimizer state included; the files
   round-trip byte-equal.
 - The CLI on the CPU: two epochs, then --resume to three; every flag that
-  is not ported raises NotImplementedError naming its ROADMAP item.
+  is not ported (and pack_crops' yuv420 codec) raises NotImplementedError
+  naming its ROADMAP item.
 """
 
 import json
@@ -49,6 +50,7 @@ from vpd_tpu_torch.models.flax_weights import (load_encoder_from_flax,
                                                load_motion_from_flax,
                                                student_params_from_flax)
 from vpd_tpu_torch.models.resnet import FlaxBatchNorm2d
+from vpd_tpu_torch.tools import pack_crops as tpack
 from vpd_tpu_torch.tools import train_vpd as tcli
 from vpd_tpu_torch.train import vpd as tvpd
 from vpd_tpu_torch.train import vpd_loop as tloop
@@ -558,16 +560,19 @@ def test_cli_flags_match_vpd_tpu(monkeypatch):
 
 
 @pytest.mark.parametrize('kw,item', [
-    ({'hbm_cache': True}, 'A4 part 3'),
-    ({'hbm_cache_sharded': True}, 'A4 part 3'),
-    ({'num_workers': 2}, 'A4 part 3'),
-    ({'pretrained': True}, 'A4 part 3'),
     ({'dataset': 'penn'}, 'A10'),
-    ({'encoder_arch': 'effnet-b0'}, 'A10')])
+    ({'encoder_arch': 'effnet-b0'}, 'A10'),
+    ({'codec': 'yuv420'}, 'A3')])
 def test_cli_unported_flags_raise(corpus, tmp_path, kw, item):
-    emb_dir, _ = corpus
+    """train_vpd's flags of A10, and pack_crops --codec yuv420 (A3)."""
+    emb_dir, crop_dir = corpus
     with pytest.raises(NotImplementedError, match='ROADMAP ' + item):
-        tcli.main(**_cli_kwargs(emb_dir, str(tmp_path / 'x'), **kw))
+        if 'codec' in kw:
+            tpack.main(crop_dir, str(tmp_path / 's'), IMG, 'flow', False, 8,
+                       **kw)
+        else:
+            tcli.main(**_cli_kwargs(emb_dir, str(tmp_path / 'x'), **kw))
+    assert not os.path.exists(tmp_path / 's')
 
 
 def test_cli_needs_a_gpu_unless_told_cpu(corpus, tmp_path, monkeypatch):

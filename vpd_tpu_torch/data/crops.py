@@ -9,14 +9,17 @@ The host only decodes PNGs (or gathers packed shards) into uint8 arrays;
 all float math runs on the device (`data/augment.py`, `ops/preprocess.py`).
 A prefetch thread decodes ahead and stages each batch on the device.
 
-Decoding uses cv2 when it is installed, else PIL, each imported at first
-use. Channel order: RGB crops come back RGB. Flow PNGs come back in cv2's
-raw BGR order — the order the flow was written in and the one the
-consumers (channels 0-1 = x, y flow) read — on both decoders: the PIL
-branch reverses PIL's RGB to match (vpd_tpu's PIL branch returns RGB
-order instead; ROADMAP "C. Faults"). Masks are the first channel of the
-raw decode. The C++ thread-pool decoder (`native_loader`) is not ported
-yet (ROADMAP A3); it gives the same bytes by vpd_tpu's contract.
+Decoding has one chokepoint, `decode_crop_batch`, as in vpd_tpu: the C++
+thread-pool decoder (`native_loader`) when it builds, else cv2 when it is
+installed, else PIL, each imported at first use. `use_native=None` probes
+the native one (building it at first use), as vpd_tpu does. The decoder
+that ran is counted in `decoder_calls` (one a batch), and a
+`CropBatchSource` records its own in `decoder`. Channel order: RGB crops
+come back RGB. Flow PNGs come back in cv2's raw BGR order — the order the
+flow was written in and the one the consumers (channels 0-1 = x, y flow)
+read — on every decoder: the PIL branch reverses PIL's RGB to match
+(vpd_tpu's PIL branch returns RGB order instead; ROADMAP "C. Faults").
+Masks are the first channel of the raw decode; a missing mask zero-fills.
 """
 
 import os
@@ -29,6 +32,9 @@ import torch
 from ..core.io import EMB_FILE_SUFFIX, load_pickle
 
 DEFAULT_MIN_POSE_SCORE = 0.5
+
+# batches each decoder decoded, in this process
+decoder_calls = {'native': 0, 'cv2': 0, 'PIL': 0}
 
 
 def _cv2():
@@ -61,15 +67,28 @@ def _imread(path, img_dim, rgb):
     return img if rgb else img[..., ::-1]  # raw reads keep cv2's BGR
 
 
+def resolve_decoder(use_native=None):
+    """The decoder `decode_crop_batch` runs: 'native' when `use_native` is
+    set, or when it is None and the native decoder builds; else 'cv2' or
+    'PIL', whichever is installed."""
+    from . import native_loader
+    if use_native is None:
+        use_native = native_loader.available()
+    if use_native:
+        return 'native'
+    return 'cv2' if _cv2() is not None else 'PIL'
+
+
 def decode_crop_batch(rgb_paths, img_dim, *, flow_paths=None,
                       mask_paths=None, rgb_out=None, flow_out=None,
-                      mask_out=None):
+                      mask_out=None, use_native=None):
     """Batch PNG decode into (n, S, S, 3) rgb [+ (n, S, S, 3) flow] [+ (n,
     S, S) mask]; returns (rgb, flow, mask), None where not asked for.
 
-    `*_out` arrays, when given, are filled in place (rows past
-    len(paths) are left untouched). Missing masks zero-fill; a missing
-    rgb or flow file raises.
+    The one native-vs-host chokepoint (`resolve_decoder`); byte-identical
+    either way. `*_out` arrays, when given, are filled in place (rows
+    past len(paths) are left untouched). Missing masks zero-fill; a
+    missing rgb or flow file raises.
     """
     n = len(rgb_paths)
     if rgb_out is None:
@@ -78,6 +97,16 @@ def decode_crop_batch(rgb_paths, img_dim, *, flow_paths=None,
         flow_out = np.zeros((n, img_dim, img_dim, 3), np.uint8)
     if mask_paths is not None and mask_out is None:
         mask_out = np.zeros((n, img_dim, img_dim), np.uint8)
+    decoder = resolve_decoder(use_native)
+    decoder_calls[decoder] += 1
+    if decoder == 'native':
+        from . import native_loader
+        native_loader.decode_crops(
+            rgb_paths, img_dim, flow_paths=flow_paths,
+            mask_paths=mask_paths, rgb_out=rgb_out[:n],
+            flow_out=flow_out[:n] if flow_paths is not None else None,
+            mask_out=mask_out[:n] if mask_paths is not None else None)
+        return rgb_out, flow_out, mask_out
     for i in range(n):
         rgb_out[i] = _imread(rgb_paths[i], img_dim, rgb=True)
         if flow_paths is not None:
@@ -180,12 +209,14 @@ class CropBatchSource:
     target has flip rows; the pixel flip happens on the device with the
     same boolean. Samples, flips and rows are drawn from
     `np.random.default_rng(seed)` in vpd_tpu's order, so a seed gives the
-    same batches in both packages.
+    same batches in both packages. PNGs (and crops missing from the
+    shards) go through `decode_crop_batch` with `use_native`; `decoder`
+    names the decoder that runs.
     """
 
     def __init__(self, samples, img_dir, img_dim, batch_size, *,
                  target_len=20000, flow_img_name=None, use_mask=True,
-                 augment=True, seed=0, shard_dir=None):
+                 augment=True, seed=0, use_native=None, shard_dir=None):
         if not samples:
             raise ValueError('empty crop dataset')
         self.samples = samples
@@ -197,6 +228,8 @@ class CropBatchSource:
         self.use_mask = use_mask
         self.augment = augment
         self.rng = np.random.default_rng(seed)
+        self.decoder = resolve_decoder(use_native)
+        self.use_native = self.decoder == 'native'
         self.shards = None
         if shard_dir is not None:  # packed-shard cache: memcpy, no codec
             from .shards import ShardReader
@@ -243,7 +276,8 @@ class CropBatchSource:
             from .shards import fill_or_decode
             fill_or_decode(self.shards, prefixes, s,
                            flow_img_name=self.flow_img_name, rgb_out=rgb,
-                           flow_out=flow, mask_out=mask)
+                           flow_out=flow, mask_out=mask,
+                           use_native=self.use_native)
         else:
             decode_crop_batch(
                 [p + '.png' for p in prefixes], s,
@@ -252,7 +286,8 @@ class CropBatchSource:
                             else None),
                 mask_paths=([p + '.mask.png' for p in prefixes]
                             if mask is not None else None),
-                rgb_out=rgb, flow_out=flow, mask_out=mask)
+                rgb_out=rgb, flow_out=flow, mask_out=mask,
+                use_native=self.use_native)
         out = {'rgb': rgb, 'emb': np.stack(embs).astype(np.float32),
                'flip': flips}
         if flow is not None:

@@ -12,12 +12,16 @@ under <shard_dir>, as `vpd_tpu.data.shards.pack_crops` writes it:
 
 `rel_prefix` is the crop path relative to the image root, '/'-separated,
 without extension: 'video/frame' or 'video/player/frame'. Extraction
-reads rgb and flow, training rgb, flow and masks. `yuv420` shards are not
+reads rgb and flow, training rgb, flow and masks. `pack_crops` (the
+counterpart of `vpd_tpu/data/shards.py:52-173`) transcodes a PNG tree
+once into this layout, byte for byte as vpd_tpu's writes it;
+`write_raw_shards` writes already-decoded arrays. `yuv420` shards are not
 ported yet (ROADMAP A3, the upload codec).
 """
 
 import json
 import os
+import re
 
 import numpy as np
 
@@ -27,6 +31,8 @@ from ..core.io import load_pickle, store_json, store_pickle
 META_FILE = 'shards_meta.json'
 INDEX_FILE = 'shards_index.pkl'
 DEFAULT_ROWS_PER_SHARD = 4096
+_FRAME_RE = re.compile(r'^\d+\.png$')
+_PACK_BATCH = 256
 
 
 def _no_yuv420(codec):
@@ -34,6 +40,109 @@ def _no_yuv420(codec):
         raise NotImplementedError(
             '"{}" shards are not ported yet (ROADMAP A3: the yuv420 upload '
             'codec and its shards); repack with codec "raw"'.format(codec))
+
+
+def scan_png_tree(img_dir):
+    """Enumerate crops under img_dir -> [(rel_prefix, abs_prefix)], sorted.
+
+    Handles both layouts: <video>/<frame>.png and
+    <video>/<player>/<frame>.png (tennis); hidden dirs are skipped.
+    """
+    out = []
+    for video in sorted(os.listdir(img_dir)):
+        vdir = os.path.join(img_dir, video)
+        if video.startswith('.') or not os.path.isdir(vdir):
+            continue
+        leaves = [(vdir, video)]
+        for sub in sorted(os.listdir(vdir)):
+            sdir = os.path.join(vdir, sub)
+            if not sub.startswith('.') and os.path.isdir(sdir):
+                leaves.append((sdir, video + '/' + sub))
+        for leaf_dir, rel_base in leaves:
+            for f in os.listdir(leaf_dir):
+                if _FRAME_RE.match(f):
+                    frame = f[:-4]
+                    out.append((rel_base + '/' + frame,
+                                os.path.join(leaf_dir, frame)))
+    out.sort()
+    return out
+
+
+def pack_crops(img_dir, shard_dir, img_dim, *, flow_img_name=None,
+               use_mask=True, rows_per_shard=DEFAULT_ROWS_PER_SHARD,
+               use_native=None, codec='raw', log=print):
+    """One-time transcode: PNG tree -> raw shard files + index. Returns
+    the crop count.
+
+    Decoding goes through `decode_crop_batch` (the native decoder when it
+    builds, by `use_native`), so packed bytes are what the PNG path would
+    give; missing masks zero-fill. Shard files, `shards_index.pkl` and
+    `shards_meta.json` are byte-equal to vpd_tpu's `pack_crops` on the
+    same tree.
+    """
+    _no_yuv420(codec)
+    entries = scan_png_tree(img_dir)
+    if not entries:
+        raise ValueError('no crops under {}'.format(img_dir))
+    os.makedirs(shard_dir, exist_ok=True)
+
+    index = {}
+    shard_rows = []
+    img = (img_dim, img_dim, 3)
+    rgb_buf = np.zeros((rows_per_shard,) + img, np.uint8)
+    flow_buf = (np.zeros((rows_per_shard,) + img, np.uint8)
+                if flow_img_name else None)
+    mask_buf = (np.zeros((rows_per_shard,) + img[:2], np.uint8)
+                if use_mask else None)
+
+    def flush(n_rows):
+        base = os.path.join(shard_dir, 's{:04d}'.format(len(shard_rows)))
+        for buf, ext in ((rgb_buf, '.rgb'), (flow_buf, '.flow'),
+                         (mask_buf, '.mask')):
+            if buf is not None:
+                buf[:n_rows].tofile(base + ext)
+        shard_rows.append(n_rows)
+
+    fill = 0
+    for start in range(0, len(entries), _PACK_BATCH):
+        chunk = entries[start:start + _PACK_BATCH]
+        rgb, flow, mask = decode_crop_batch(
+            [p + '.png' for _, p in chunk], img_dim,
+            flow_paths=(['{}.{}.png'.format(p, flow_img_name)
+                         for _, p in chunk] if flow_img_name else None),
+            mask_paths=([p + '.mask.png' for _, p in chunk]
+                        if use_mask else None),
+            use_native=use_native)
+        for j, (rel, _) in enumerate(chunk):
+            index[rel] = len(shard_rows) * rows_per_shard + fill
+            rgb_buf[fill] = rgb[j]
+            if flow_buf is not None:
+                flow_buf[fill] = flow[j]
+            if mask_buf is not None:
+                mask_buf[fill] = mask[j]
+            fill += 1
+            if fill == rows_per_shard:
+                flush(fill)
+                fill = 0
+        if (start // _PACK_BATCH) % 20 == 0:
+            log('packed {} / {} crops'.format(
+                min(start + _PACK_BATCH, len(entries)), len(entries)))
+    if fill:
+        flush(fill)
+
+    store_pickle(os.path.join(shard_dir, INDEX_FILE), index)
+    store_json(os.path.join(shard_dir, META_FILE), {
+        'img_dim': img_dim,
+        'codec': codec,
+        'flow_img_name': flow_img_name,
+        'use_mask': use_mask,
+        'rows_per_shard': rows_per_shard,
+        'shard_rows': shard_rows,
+        'num_rows': len(index),
+    }, indent=2)
+    log('packed {} crops into {} shards under {}'.format(
+        len(index), len(shard_rows), shard_dir))
+    return len(index)
 
 
 def write_raw_shards(shard_dir, rel_prefixes, rgb, flow=None,
@@ -148,8 +257,10 @@ class ShardReader:
 
 
 def fill_or_decode(reader, prefixes, img_dim, *, flow_img_name=None,
-                   rgb_out=None, flow_out=None, mask_out=None, codec='raw'):
-    """Shard gather with per-row PNG-decode fallback for unpacked crops.
+                   rgb_out=None, flow_out=None, mask_out=None,
+                   use_native=None, codec='raw'):
+    """Shard gather with per-row PNG-decode fallback for unpacked crops
+    (decoded by `decode_crop_batch` with `use_native`).
 
     Drop-in alternative to `decode_crop_batch` over path prefixes; output
     bytes are identical. The request is checked against the shard meta so
@@ -180,7 +291,8 @@ def fill_or_decode(reader, prefixes, img_dim, *, flow_img_name=None,
                          for i in missing]
                         if flow_out is not None else None),
             mask_paths=([prefixes[i] + '.mask.png' for i in missing]
-                        if mask_out is not None else None))
+                        if mask_out is not None else None),
+            use_native=use_native)
         rgb_out[missing] = rgb_t
         if flow_out is not None:
             flow_out[missing] = flow_t

@@ -19,6 +19,9 @@ compiles every source once more with `-Xptxas -v` and prints ptxas's
 report: registers, spill stores and loads, and static shared memory of
 each kernel. `ptxas_resources` reads that report into one record a
 kernel.
+
+`build_locked` builds a host (C++) library into the same directory: the
+native PNG decoder (`data/native_loader.py`) over `native/crop_loader.cpp`.
 """
 
 import ctypes
@@ -134,6 +137,31 @@ def load_kernels():
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def build_locked(src, lib_path, extra_flags=()):
+    """Race-safe on-demand g++ build of a host library (the port's copy of
+    vpd_tpu's helper). Decode workers and test processes may all find the
+    library missing at once: an exclusive flock serializes the compile,
+    the output lands in a pid-unique temp file, and os.replace publishes
+    it, so a concurrent dlopen never sees a half-written library. Rebuilds
+    when `src` is newer than `lib_path`."""
+    import fcntl
+
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    with open(str(lib_path) + '.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(lib_path) and (
+                    os.path.getmtime(lib_path) >= os.path.getmtime(src)):
+                return  # another process built it while we waited
+            tmp = '{}.tmp.{}'.format(lib_path, os.getpid())
+            subprocess.check_call(
+                ['g++', '-O3', '-march=native', '-shared', '-fPIC',
+                 '-o', tmp, str(src)] + list(extra_flags))
+            os.replace(tmp, lib_path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def ptxas_report(names=None):

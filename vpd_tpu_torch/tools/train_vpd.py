@@ -8,20 +8,28 @@ Same flags as `python -m vpd_tpu.tools.train_vpd`, plus `--device`
         --emb_dir <teacher .emb.pkl dir> [--crop_shards <raw shards>] \
         [--flow_img flow] [--motion] [--resume]
 
-Crops are read from `<VPD_SPORTS_DIR>/<dataset>/crops` (PNGs) or from
-packed raw shards (`--crop_shards`). Not ported yet, and raising
-NotImplementedError: the device crop cache (`--hbm_cache`,
-`--hbm_cache_sharded`), decode worker processes (`--num_workers` > 0) and
-ImageNet weights (`--pretrained`), all ROADMAP A4 part 3; the penn
-ablation and EfficientNet students (A10).
+Crops are read from `<VPD_SPORTS_DIR>/<dataset>/crops` (PNGs, decoded by
+the native decoder where it builds, else cv2 or PIL) or from packed raw
+shards (`--crop_shards`, written by `tools/pack_crops`). `--hbm_cache`
+(or `--hbm_cache_sharded`, the same on one GPU) stages the shards in
+device memory once and trains on index batches gathered there.
+`--num_workers N` decodes in N spawned worker processes (N // 2 for
+validation). `--pretrained --init_weights <torchvision .pth>` starts the
+backbone from ImageNet weights. Not ported yet, and raising
+NotImplementedError: the penn ablation and EfficientNet students (ROADMAP
+A10).
 """
 
 import argparse
+import functools
 import os
 
 from .. import resolve_device
 from ..data.crops import (CropBatchSource, PrefetchedSource, scan_emb_dir,
                           train_val_split)
+from ..data.hbm_cache import CacheIndexSource, DeviceCropCache
+from ..data.parallel_batcher import MultiprocessBatcher
+from ..data.shards import ShardReader
 from ..datasets.eval_splits import get_test_prefixes
 from ..train.vpd_loop import VPDTrainer, default_config
 from . import paths
@@ -57,12 +65,11 @@ def get_args():
     parser.add_argument('--motion', action='store_true')
     parser.add_argument('--encoder_arch', type=str, default='resnet34')
     parser.add_argument('--model_select_window', type=int, default=5)
-    parser.add_argument('--pretrained', action='store_true',
-                        help='not ported yet (ROADMAP A4 part 3): needs '
-                             'torchvision ImageNet weights')
+    parser.add_argument('--pretrained', action='store_true')
     parser.add_argument('--init_weights', type=str,
-                        help='torchvision ImageNet state_dict for '
-                             '--pretrained (not ported yet)')
+                        help='torchvision ImageNet state_dict (.pth) to '
+                             'initialize the backbone from (required with '
+                             '--pretrained; reference models/rgb.py:56-66)')
     parser.add_argument('--no_test_video', action='store_true')
     parser.add_argument('--min_pose_score', type=float)
     parser.add_argument('--emb_dir', type=str)
@@ -76,8 +83,8 @@ def get_args():
                              '--save_dir; epoch checkpoints carry the '
                              'AdamW moments')
     parser.add_argument('--num_workers', type=int, default=0,
-                        help='decode worker processes: not ported yet '
-                             '(ROADMAP A4 part 3), must be 0')
+                        help='decode/sample worker processes '
+                             '(reference DataLoader num_workers)')
     parser.add_argument('--crop_shards', type=str,
                         help='packed raw crop-shard dir; replaces PNG '
                              'decode with a memmap gather')
@@ -86,15 +93,17 @@ def get_args():
                              'reference does (vpd_dataset/common.py:'
                              '83-108); default is deterministic val')
     parser.add_argument('--hbm_cache', action='store_true',
-                        help='device crop cache: not ported yet (ROADMAP '
-                             'A4 part 3)')
+                        help='stage the packed crop shards in device '
+                             'memory once and gather batches there '
+                             '(requires --crop_shards)')
     parser.add_argument('--jitter_order', type=str, default='batch',
                         choices=('batch', 'per_sample'),
                         help='colour-jitter op order: one per batch '
                              '(default) or per image (QUIRKS.md)')
     parser.add_argument('--hbm_cache_sharded', action='store_true',
-                        help='row-sharded device crop cache: not ported '
-                             'yet (ROADMAP A4 part 3)')
+                        help='row-shard the device cache over GPUs; on '
+                             'one GPU the same as --hbm_cache (the '
+                             'multi-GPU cache is ROADMAP A11)')
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device (default cuda; cpu runs the '
                              'plain PyTorch path)')
@@ -115,26 +124,77 @@ def get_exclude_prefixes(dataset):
     raise NotImplementedError(dataset)
 
 
-def _not_ported(dataset, encoder_arch, pretrained, num_workers, hbm_cache,
-                hbm_cache_sharded):
+def _not_ported(dataset, encoder_arch):
     if dataset == 'penn':
         raise NotImplementedError(
             'the penn ablation is not ported yet (ROADMAP A10)')
     if 'effnet' in encoder_arch:
         raise NotImplementedError(
             'EfficientNet students are not ported yet (ROADMAP A10)')
-    if pretrained:
-        raise NotImplementedError(
-            '--pretrained needs torchvision ImageNet weights, which are not '
-            'in the repository (ROADMAP A4 part 3)')
-    if num_workers:
-        raise NotImplementedError(
-            '--num_workers > 0 (decode worker processes) is not ported yet '
-            '(ROADMAP A4 part 3)')
+
+
+def worker_source(samples, img_dir, img_dim, batch_size, target_len, seed,
+                  augment, src_kwargs, worker_id):
+    """Decode worker `worker_id`'s `CropBatchSource`, seeded seed + 1000 *
+    (worker_id + 1) as vpd_tpu seeds its workers. Module-level, so that a
+    `functools.partial` of it pickles into spawned workers."""
+    return CropBatchSource(samples, img_dir, img_dim, batch_size,
+                           target_len=target_len, augment=augment,
+                           seed=seed + 1000 * (worker_id + 1), **src_kwargs)
+
+
+def make_sources(train, val, crop_dir, img_dim, batch_size, seed, *,
+                 flow_img=None, crop_shards=None, augment_val=False,
+                 hbm_cache=False, hbm_cache_sharded=False, num_workers=0,
+                 device=None):
+    """(train, val, owned): the batch sources of a run and what the caller
+    closes, last first. With the cache: index sources over one
+    `DeviceCropCache`; else crop sources (in worker processes with
+    `num_workers`) behind a prefetcher that stages batches on `device`."""
+    src_kwargs = {'flow_img_name': flow_img, 'shard_dir': crop_shards}
     if hbm_cache or hbm_cache_sharded:
-        raise NotImplementedError(
-            'the device crop cache (--hbm_cache, --hbm_cache_sharded) is '
-            'not ported yet (ROADMAP A4 part 3)')
+        # stage the packed shards on the device once; batches become
+        # index gathers there, so no decode workers and no prefetch
+        if not crop_shards:
+            raise ValueError('--hbm_cache requires --crop_shards')
+        if num_workers:
+            raise ValueError('--hbm_cache needs no decode workers')
+        cache = DeviceCropCache(ShardReader(crop_shards, crop_root=crop_dir),
+                                use_flow=flow_img is not None,
+                                shard_rows=hbm_cache_sharded, device=device)
+        return (CacheIndexSource(train, crop_dir, img_dim, batch_size,
+                                 target_len=TRAIN_LEN, seed=seed,
+                                 cache=cache, **src_kwargs),
+                CacheIndexSource(val, crop_dir, img_dim, batch_size,
+                                 target_len=VAL_LEN, augment=augment_val,
+                                 seed=seed + 1, cache=cache, **src_kwargs),
+                [])
+    owned = []
+    if num_workers > 0:
+        train_src = MultiprocessBatcher(
+            functools.partial(worker_source, train, crop_dir, img_dim,
+                              batch_size, TRAIN_LEN, seed, True, src_kwargs),
+            num_workers, max(1, TRAIN_LEN // batch_size))
+        owned.append(train_src)
+        # augment_val: the reference samples val with flips too
+        # (single_frame.py:173 with augment=True)
+        val_src = MultiprocessBatcher(
+            functools.partial(worker_source, val, crop_dir, img_dim,
+                              batch_size, VAL_LEN, seed + 1, augment_val,
+                              src_kwargs),
+            max(1, num_workers // 2), max(1, VAL_LEN // batch_size))
+        owned.append(val_src)
+    else:
+        train_src = CropBatchSource(train, crop_dir, img_dim, batch_size,
+                                    target_len=TRAIN_LEN, seed=seed,
+                                    **src_kwargs)
+        val_src = CropBatchSource(val, crop_dir, img_dim, batch_size,
+                                  target_len=VAL_LEN, augment=augment_val,
+                                  seed=seed + 1, **src_kwargs)
+    # decode ahead on a thread that also stages each batch on the device
+    train_src = PrefetchedSource(train_src, device=device)
+    val_src = PrefetchedSource(val_src, device=device)
+    return train_src, val_src, owned + [train_src, val_src]
 
 
 def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
@@ -144,8 +204,7 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
          crop_shards=None, augment_val=False, hbm_cache=False,
          hbm_cache_sharded=False, penn_dir=None, penn_frame_dir=None,
          resume=False, jitter_order='batch', device='cuda'):
-    _not_ported(dataset, encoder_arch, pretrained, num_workers, hbm_cache,
-                hbm_cache_sharded)
+    _not_ported(dataset, encoder_arch)
     device = resolve_device(device)
     if emb_dir is None:
         emb_dir = os.path.join(ROOT_DIRS[dataset], 'embs')
@@ -156,16 +215,6 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
         exclude_prefixes=exclude, tennis_layout=(dataset == 'tennis'))
     train, val = train_val_split(samples, 0.2, seed=seed)
 
-    crop_dir = CROP_DIRS[dataset]
-    src_kwargs = {'flow_img_name': flow_img, 'shard_dir': crop_shards}
-    # decode ahead on a thread that also stages each batch on the device
-    train_src = PrefetchedSource(CropBatchSource(
-        train, crop_dir, img_dim, batch_size, target_len=TRAIN_LEN,
-        seed=seed, **src_kwargs), device=device)
-    val_src = PrefetchedSource(CropBatchSource(
-        val, crop_dir, img_dim, batch_size, target_len=VAL_LEN,
-        augment=augment_val, seed=seed + 1, **src_kwargs), device=device)
-
     config = default_config(
         dataset, emb_dim, num_epochs=num_epochs, batch_size=batch_size,
         learning_rate=learning_rate, img_dim=img_dim,
@@ -174,9 +223,15 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
         model_select_window=model_select_window,
         checkpoint_frequency=checkpoint_frequency,
         augment_val=augment_val, jitter_order=jitter_order)
+    train_src, val_src, owned = make_sources(
+        train, val, CROP_DIRS[dataset], img_dim, batch_size, seed,
+        flow_img=flow_img, crop_shards=crop_shards, augment_val=augment_val,
+        hbm_cache=hbm_cache, hbm_cache_sharded=hbm_cache_sharded,
+        num_workers=num_workers, device=device)
     try:
         trainer = VPDTrainer(train_src, val_src, config, save_dir=save_dir,
-                             seed=seed, device=device)
+                             seed=seed, device=device,
+                             pretrained_weights=init_weights)
         start_epoch = 1
         if resume:
             start_epoch = trainer.resume()
@@ -185,8 +240,8 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
             trainer.save_config()
         trainer.fit(start_epoch=start_epoch)
     finally:
-        train_src.close()
-        val_src.close()
+        for src in reversed(owned):
+            src.close()
     print('Done!')
     return trainer
 

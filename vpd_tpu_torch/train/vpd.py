@@ -10,7 +10,9 @@ One train step on the card: the uint8 batch is augmented on the device
 (`data/augment.py`), the student runs forward and backward with float32
 master parameters and bf16 compute (`models/resnet.py`), and AdamW steps.
 The step reads nothing back from the device: its metrics stay there
-until the epoch ends (`core/metrics.fetch_metrics`).
+until the epoch ends (`core/metrics.fetch_metrics`). The cached steps
+take index batches and gather the pixel rows from the device crop cache
+(`data/hbm_cache.py`) first, then run the same body.
 
 Randomness: vpd_tpu folds the step counter into one key per run
 (`jax.random.fold_in(rng, state.step)`). Here a step's augmentation
@@ -179,6 +181,36 @@ def make_train_step(mean, std, img_dim=128, use_flow=False, use_mask=True,
     return step
 
 
+def cache_gather(cache, idx, names):
+    """The rows `idx` ((B,) int32 on the cache's device) of the cache
+    streams in `names`: {name: (B, ...) uint8}. One `index_select` a
+    stream, no host sync."""
+    return {k: cache[k].index_select(0, idx) for k in names if k in cache}
+
+
+def make_cached_train_step(mean, std, img_dim=128, use_flow=False,
+                           use_mask=True, aug_dtype=torch.float32,
+                           jitter_order='batch'):
+    """Train step over the device crop cache (`data/hbm_cache.py`):
+    step(state, batch, seed, cache) -> metrics, where the batch carries
+    row indices, targets and flips ({'idx', 'emb', 'flip'}) and `cache` is
+    `DeviceCropCache.arrays`. The rows are gathered on the device, then
+    the step is `make_train_step`'s on the same pixels and draws. Masks are
+    used when `use_mask` (the source's setting, not whether the cache
+    holds masks)."""
+    augment = _make_augment(mean, std, img_dim, use_flow, use_mask,
+                            aug_dtype, jitter_order)
+    names = ('rgb',) + (('flow',) if use_flow else ()) + (
+        ('mask',) if use_mask else ())
+
+    def step(state, batch, seed, cache):
+        pixels = cache_gather(cache, batch['idx'], names)
+        imgs = augment({**pixels, 'flip': batch['flip']}, seed, state.step)
+        return apply_train_update(state, imgs, batch['emb'])
+
+    return step
+
+
 def _eval_metrics(state, imgs, emb):
     model = state.model.eval()
     with torch.no_grad():
@@ -198,6 +230,19 @@ def make_eval_step(mean, std, use_flow=False):
             rgb, *consts.stats(rgb.device, torch.float32),
             flow_u8=batch.get('flow') if use_flow else None)
         return _eval_metrics(state, imgs, batch['emb'])
+
+    return step
+
+
+def make_cached_eval_step(mean, std, use_flow=False):
+    """Deterministic eval over the device crop cache: step(state, batch,
+    cache) -> metrics on index batches ({'idx', 'emb'})."""
+    eval_step = make_eval_step(mean, std, use_flow=use_flow)
+    names = ('rgb', 'flow') if use_flow else ('rgb',)
+
+    def step(state, batch, cache):
+        return eval_step(state, {**cache_gather(cache, batch['idx'], names),
+                                 'emb': batch['emb']})
 
     return step
 

@@ -8,13 +8,17 @@ format; `epoch%04d` checkpoints also hold `{name}.optimizer.ckpt`, AdamW's
 state in optax's layout. So a student written by either package loads,
 and a run resumes, in the other.
 
-Not ported, and raising NotImplementedError: ImageNet-initialised
-students (`pretrained`, ROADMAP A4 part 3), EfficientNet students (A10)
-and training over the device-resident crop cache (A4 part 3).
+Sources whose batches are cache row indices (`data/hbm_cache.
+CacheIndexSource`, carrying the `DeviceCropCache` as `device_cache`)
+train through the cached steps, which gather the pixels on the device.
+`pretrained` students start from a torchvision ImageNet state_dict
+(`models/torch_compat.py`). Not ported, and raising NotImplementedError:
+EfficientNet students (ROADMAP A10).
 """
 
 import os
 import time
+import warnings
 
 import torch
 
@@ -26,8 +30,11 @@ from ..data.augment import RGB_MEAN_STD
 from ..models import build_encoder
 from ..models.flax_weights import (encoder_to_flax, load_encoder_from_flax,
                                    load_motion_from_flax, motion_to_flax)
+from ..models.torch_compat import (imagenet_init_variables,
+                                   load_torch_state_dict)
 from .vpd import (MotionHead, VPDStudent, create_state,
                   load_optimizer_from_flax, make_aug_eval_step,
+                  make_cached_eval_step, make_cached_train_step,
                   make_eval_step, make_train_step, optimizer_to_flax)
 
 
@@ -70,41 +77,74 @@ def _to_device(batch, device):
             for k, v in batch.items()}
 
 
+def _same_device(a, b):
+    """Whether torch devices a and b are one device ('cuda' is the current
+    CUDA device)."""
+    def index(d):
+        if d.index is not None or d.type != 'cuda':
+            return d.index
+        return torch.cuda.current_device()
+    return a.type == b.type and index(a) == index(b)
+
+
 class VPDTrainer:
     """Trains a student from batch sources (`next_batch()` dicts of host
     arrays or device tensors, `num_batches` per epoch) on `device` (CUDA
     by default), float32 master parameters computing in `dtype` (bf16 by
-    default; the augmentation runs in the same dtype)."""
+    default; the augmentation runs in the same dtype).
+
+    A train source with a `device_cache` (`data/hbm_cache.
+    CacheIndexSource`) selects the cached steps; the val source must
+    share that cache, and `augment_val` is refused with it, as in
+    vpd_tpu. `pretrained_weights` (a path or a state_dict) initialises a
+    `pretrained` student's backbone."""
 
     def __init__(self, train_source, val_source, config, save_dir=None,
-                 seed=0, dtype=None, device=None):
+                 seed=0, dtype=None, device=None, pretrained_weights=None):
         self.train_source = train_source
         self.val_source = val_source
         self.config = dict(config)
         self.save_dir = save_dir
         self.device = resolve_device(device)
-        if self.config.get('pretrained'):
-            raise NotImplementedError(
-                'ImageNet-initialised students need torchvision weights, '
-                'which are not in the repository (ROADMAP A4 part 3)')
-        if getattr(train_source, 'device_cache', None) is not None:
-            raise NotImplementedError(
-                'training over the device crop cache is not ported yet '
-                '(ROADMAP A4 part 3)')
+        cache = getattr(train_source, 'device_cache', None)
+        self.cache = cache.arrays if cache is not None else None
+        if cache is not None:
+            if not _same_device(cache.device, self.device):
+                raise ValueError('the DeviceCropCache is on {}, the trainer '
+                                 'on {}'.format(cache.device, self.device))
+            if self.config.get('augment_val'):
+                raise ValueError('augment_val with the device crop cache is '
+                                 'not implemented')
+            if val_source is not None and \
+                    getattr(val_source, 'device_cache', None) is not cache:
+                raise ValueError('train and val sources must share one '
+                                 'DeviceCropCache')
 
         model_dtype = dtype if dtype is not None else torch.bfloat16
-        model = build_student(self.config, dtype=model_dtype,
-                              param_dtype=torch.promote_types(
-                                  model_dtype, torch.float32))
+        # the initial weights follow `seed` (vpd_tpu inits from
+        # jax.random.key(seed)), without touching the global generator
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = build_student(self.config, dtype=model_dtype,
+                                  param_dtype=torch.promote_types(
+                                      model_dtype, torch.float32))
         model.to(self.device)
         if self.device.type == 'cuda':
             model.to(memory_format=torch.channels_last)
         self.state = create_state(model, config['learning_rate'])
+        if self.config.get('pretrained'):
+            self._init_pretrained(pretrained_weights,
+                                  5 if config['use_flow'] else 3)
 
         mean, std = config['rgb_mean_std']
+        # augmentation inputs follow the SOURCE's configuration: the
+        # cached step would otherwise add mask noise whenever the cache
+        # happens to hold masks
         use_mask = getattr(train_source, 'use_mask', True)
         jitter_order = self.config.get('jitter_order', 'batch')
-        self.train_step = make_train_step(
+        make_train = (make_cached_train_step if self.cache is not None
+                      else make_train_step)
+        self.train_step = make_train(
             mean, std, img_dim=config['img_dim'],
             use_flow=config['use_flow'], use_mask=use_mask,
             aug_dtype=model_dtype, jitter_order=jitter_order)
@@ -115,8 +155,10 @@ class VPDTrainer:
                 use_flow=config['use_flow'], use_mask=use_mask,
                 aug_dtype=model_dtype, jitter_order=jitter_order)
         else:
-            self.eval_step = make_eval_step(mean, std,
-                                            use_flow=config['use_flow'])
+            make_eval = (make_cached_eval_step if self.cache is not None
+                         else make_eval_step)
+            self.eval_step = make_eval(mean, std,
+                                       use_flow=config['use_flow'])
             self.aug_eval_step = None
         self.seed = seed + 1
         self.val_seed = seed + 2
@@ -130,6 +172,36 @@ class VPDTrainer:
     @property
     def model(self):
         return self.state.model
+
+    def _init_pretrained(self, weights, num_channels):
+        """ImageNet-init the encoder (reference `models/rgb.py:56-66`):
+        every backbone tensor from a torchvision state_dict (a path, read
+        with `weights_only`, or a dict), the stem mean-expanded for
+        5-channel students; the embedding head stays fresh."""
+        arch = self.config['encoder_arch']
+        if 'resnet' not in arch:
+            # reference parity: the effnet path builds with from_name
+            # (models/rgb.py:62-66), which ignores pretrained
+            warnings.warn(
+                'pretrained=True is ignored for {} (reference parity: '
+                'models/rgb.py:62-66 builds effnet with from_name, i.e. '
+                'random init)'.format(arch))
+            return
+        if weights is None:
+            raise ValueError(
+                'pretrained=True requires ImageNet weights: pass '
+                '--init_weights <torchvision {} state_dict .pth> (none can '
+                'be downloaded here, so the file must be supplied)'.format(
+                    arch))
+        sd = (load_torch_state_dict(weights)
+              if isinstance(weights, (str, os.PathLike)) else weights)
+        missing, _ = self.model.encoder.load_state_dict(
+            imagenet_init_variables(sd, arch, num_channels), strict=False)
+        kept = [k for k in missing if not (k.startswith('fc.') or
+                                           k.endswith('num_batches_tracked'))]
+        if kept:
+            raise ValueError('ImageNet init left {} uninitialised'.format(
+                kept))
 
     def save_config(self):
         os.makedirs(self.save_dir, exist_ok=True)
@@ -148,12 +220,16 @@ class VPDTrainer:
         metrics = []
         for _ in range(source.num_batches):
             batch = _to_device(source.next_batch(), self.device)
-            if train:
+            if train and self.cache is not None:
+                m = self.train_step(self.state, batch, self.seed, self.cache)
+            elif train:
                 m = self.train_step(self.state, batch, self.seed)
             elif self.aug_eval_step is not None:
                 m = self.aug_eval_step(self.state, batch, self.val_seed,
                                        self._val_steps)
                 self._val_steps += 1
+            elif self.cache is not None:
+                m = self.eval_step(self.state, batch, self.cache)
             else:
                 m = self.eval_step(self.state, batch)
             metrics.append(m)
