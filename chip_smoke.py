@@ -64,6 +64,20 @@ line each; any failure raises and exits non-zero:
              pairwise cosines); 600 PNG crops decoded by the native
              decoder (where it builds) and cv2, and packed by
              `tools/pack_crops`, read back equal
+  teacher    the VIPE* teacher (no hand kernel: float32 linears on cuBLAS
+             with TF32 off): four synthetic mocap families written in
+             tools/paths' layout (`write_mocap_corpus`), `python -m
+             vpd_tpu_torch.tools.train_vipe --dataset 3d` at vpd_tpu's
+             defaults (FCResNet 2 x 1024, 32-d, batch 100) for 2 epochs
+             and `--resume` to 3 in subprocesses with VPD_VIPE_DATA_DIR
+             set, its loss.json, best_epoch and checkpoints checked; the
+             step alone at B = 100 and 4096 on a ring of batches on the
+             card (ms, rows/s, peak memory, TFLOP/s beside the float32
+             bound); the sampler's host ms per batch; `apply_vipe` on the
+             card over gz-JSON poses of the train corpus' videos (rows/s,
+             rows checked, every row against the CPU at atol 1e-4); one
+             `train_vpd` epoch on the teacher's embeddings, its student
+             extracted and ROADMAP C2 read on it
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
@@ -85,10 +99,13 @@ import time
 import numpy as np
 import torch
 
-from vpd_tpu_torch.core.io import store_embs_pickle
+from vpd_tpu_torch.core.io import (store_embs_pickle, store_gz_json,
+                                   store_pickle)
+from vpd_tpu_torch.core.metrics import fetch_metrics
 from vpd_tpu_torch.data import augment as aug
 from vpd_tpu_torch.data import crops as crops_mod
 from vpd_tpu_torch.data import native_loader
+from vpd_tpu_torch.data import vipe_sampler
 from vpd_tpu_torch.data.crops import CropBatchSource
 from vpd_tpu_torch.data.hbm_cache import CacheIndexSource, DeviceCropCache
 from vpd_tpu_torch.data.shards import ShardReader, write_raw_shards
@@ -96,6 +113,8 @@ from vpd_tpu_torch.datasets.eval_splits import FS_TEST_PREFIXES
 from vpd_tpu_torch.datasets.metadata_cache import load_meta_cache
 from vpd_tpu_torch.datasets.recognition_data import (ACTION_DATA_DIR,
                                                      FS_CLASSES)
+from vpd_tpu_torch.geometry.camera import random_project_offsets
+from vpd_tpu_torch.infer import apply_vipe as av
 from vpd_tpu_torch.infer import apply_vpd as ap
 from vpd_tpu_torch.ops import _build
 from vpd_tpu_torch.ops import dtw_kernel as dtwk
@@ -104,6 +123,9 @@ from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
 from vpd_tpu_torch.tasks import neighbors as nb
 from vpd_tpu_torch.tools import pack_crops as pack_cli
 from vpd_tpu_torch.tools import recognize as recognize_cli
+from vpd_tpu_torch.tools import train_vipe as vipe_cli
+from vpd_tpu_torch.train import vipe as tvipe
+from vpd_tpu_torch.train import vipe_loop as tvloop
 from vpd_tpu_torch.train.vpd import (cache_gather, create_state,
                                      forward_backward,
                                      make_cached_train_step,
@@ -151,10 +173,89 @@ CACHE_CHECK_ROWS = 512
 CACHE_LOSS_RTOL, CACHE_PARAM_RTOL = 1e-6, 1e-5
 CLI_CACHE_EPOCHS = 3
 PNG_VIDEOS, PNG_FRAMES = 2, 300
+TEACHER_EPOCHS = 2
+TEACHER_BATCHES = (100, 4096)
+TEACHER_STEPS = 20
+TEACHER_SAMPLER_BATCHES = 50
+TEACHER_CPU_ATOL = 1e-4    # float32 on the card (TF32 off) against the CPU
+
+
+# the teacher's synthetic mocap corpus, in tools/paths' layout; the people
+# of vpd_tpu's validation split (VAL_PEOPLE) come last: two for 3dpeople,
+# whose pairwise sampler draws two people, one for the others
+MOCAP_DIRS = {'human36m': 'human3.6m', '3dpeople': '3dpeople',
+              'nba2k': 'nba2k', 'amass': 'amass'}
+MOCAP_PEOPLE = {'human36m': ('S1', 'S5', 'S6', 'S9'),
+                '3dpeople': ('man05', 'woman05', 'man01', 'woman01'),
+                'nba2k': ('curry', 'james', 'durant', 'alfred'),
+                'amass': ('CMU', 'KIT', 'BMLmovi', 'EyesJapanDataset')}
+MOCAP_ACTIONS = ('walk', 'jump')  # nba2k keys by person alone
+MOCAP_FRAMES, MOCAP_CAMERAS = 60, 4
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def _mocap_frame_nums(family, n):
+    """2D frame numbers whose 3D pose index (`FAMILIES[family].
+    pose3d_index`) is 0..n-1."""
+    if family == '3dpeople':
+        return [i + 1 for i in range(n)]
+    if family == 'amass':
+        return [25 * i for i in range(n)]
+    return list(range(n))
+
+
+def write_mocap_corpus(root, rng, frames=MOCAP_FRAMES,
+                       cameras=MOCAP_CAMERAS):
+    """The four mocap families under `root` as the loaders read them:
+    `<dir>/ground_truth_3d_pose.pkl` ({key: [(root, theta, (E, 3)
+    offsets)] a frame}) and `<dir>/cocopose/*.json.gz`, one file a
+    (person, action, camera) for human3.6m and one a sequence, every
+    camera in it, for the others. Offsets are random bones (unit
+    directions, lengths 0.1-0.3); each camera's 2D pose is a random
+    synthetic projection of its frame. Returns the number of 2D poses."""
+    n_poses = 0
+    for family, dirname in MOCAP_DIRS.items():
+        spec = vipe_sampler.FAMILIES[family].spec
+        base = os.path.join(root, dirname)
+        pose_dir = os.path.join(base, 'cocopose')
+        os.makedirs(pose_dir)
+        poses_3d = {}
+        for person in MOCAP_PEOPLE[family]:
+            for action in (MOCAP_ACTIONS if family != 'nba2k' else (None,)):
+                key = (person,) if action is None else (person, action)
+                shape = (frames, spec.num_edges)
+                dirs = rng.normal(size=shape + (3,))
+                dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+                offsets = (dirs * rng.uniform(0.1, 0.3, shape + (1,))).astype(
+                    np.float32)
+                poses_3d[key] = [(np.zeros(3, np.float32),
+                                  float(rng.uniform(-180, 180)), offsets[i])
+                                 for i in range(frames)]
+                views = [[random_project_offsets(spec, offsets[i], rng)
+                          .tolist() for _ in range(cameras)]
+                         for i in range(frames)]
+                n_poses += frames * cameras
+                nums = _mocap_frame_nums(family, frames)
+                if family == 'human36m':
+                    for c in range(cameras):
+                        store_gz_json(os.path.join(
+                            pose_dir, '{}.{}.cam{}.json.gz'.format(
+                                person, action, c)),
+                            [[f, [[0.9, views[i][c]]]]
+                             for i, f in enumerate(nums)])
+                    continue
+                name = {'3dpeople': '{}__{}', 'amass': '{}_{}'}.get(
+                    family, '{}').format(person, action)
+                store_gz_json(os.path.join(pose_dir, name + '.json.gz'),
+                              [[f, [['cam{}'.format(c), [0.9, views[i][c]]]
+                                    for c in range(cameras)]]
+                               for i, f in enumerate(nums)])
+        store_pickle(os.path.join(base, 'ground_truth_3d_pose.pkl'),
+                     poses_3d)
+    return n_poses
 
 
 def card_line():
@@ -1093,17 +1194,17 @@ def _write_train_corpus(root, rng):
     return emb_dir, shard_dir, keys
 
 
-def _train_cli(args, env):
-    """One `python -m vpd_tpu_torch.tools.train_vpd` run: (seconds, the
+def _train_cli(args, env, tool='train_vpd'):
+    """One `python -m vpd_tpu_torch.tools.<tool>` run: (seconds, the
     seconds of each epoch it printed)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, '-m', 'vpd_tpu_torch.tools.train_vpd', *args],
+        [sys.executable, '-m', 'vpd_tpu_torch.tools.' + tool, *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     secs = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError('train_vpd failed ({}): {}'.format(
-            proc.returncode, proc.stderr[-3000:]))
+        raise AssertionError('{} failed ({}): {}'.format(
+            tool, proc.returncode, proc.stderr[-3000:]))
     epochs = [float(line.rsplit('(', 1)[1].split()[0])
               for line in proc.stdout.splitlines()
               if line.startswith('Epoch ')]
@@ -1483,6 +1584,226 @@ def phase_cache(card, train):
           'step': step, 'cli': cli, 'c2': c2, 'png': png})
 
 
+def _teacher_flops(model, batch):
+    """Multiply-add flops of one train step of the teacher on `batch`
+    (forward: three encoder passes, two decoder passes; backward twice
+    the forward), from the shapes."""
+    n = batch['pose1'].shape[0]
+    enc = sum(2 * n * m.in_features * m.out_features
+              for m in model.encoder.modules()
+              if isinstance(m, torch.nn.Linear))
+    head = model.decoder.head.kernel
+    dec = sum(2 * n * m.in_features * m.out_features
+              for m in model.decoder.modules()
+              if isinstance(m, torch.nn.Linear)) + 2 * n * head.numel()
+    return 3 * (3 * enc + 2 * dec)
+
+
+def _teacher_step_on_card(mocap):
+    """The teacher's train step at full width (vpd_tpu's defaults, the four
+    3D families) on a ring of batches on the card, for each of
+    TEACHER_BATCHES: median ms (CUDA events), rows/s on the host clock,
+    peak memory, TFLOP/s against the float32 peak; and the sampler's host
+    ms per batch of 100."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError('the teacher runs in float32: TF32 must be off')
+    samplers, shapes, norms = [], [], []
+    for i, fam in enumerate(vipe_cli.DATASETS_3D):
+        base = os.path.join(mocap, MOCAP_DIRS[fam])
+        (seqs, _), poses = vipe_cli.LOADERS[fam][0](
+            os.path.join(base, 'cocopose'),
+            os.path.join(base, 'ground_truth_3d_pose.pkl'))
+        family = vipe_sampler.FAMILIES[fam]
+        samplers.append(vipe_sampler.VIPESampler(
+            family, seqs, poses, target_len=family.train_target_len,
+            seed=SEED + i))
+        shapes.append((family.spec.num_edges, 7))
+        norms.append(samplers[-1].mean_kp_offset_norms)
+    batcher = vipe_sampler.FusedBatcher(samplers, 100)
+    t0 = time.perf_counter()
+    for _ in range(TEACHER_SAMPLER_BATCHES):
+        batcher.next_batch()
+    sampler_ms = (time.perf_counter() - t0) / TEACHER_SAMPLER_BATCHES * 1e3
+
+    cfg = tvloop.default_config(vipe_cli.DATASETS_3D, shapes, norms)
+    out = {'sampler_host_ms_per_batch_100': sampler_ms,
+           'sampler_batches_timed': TEACHER_SAMPLER_BATCHES}
+    for b in TEACHER_BATCHES:
+        batcher = vipe_sampler.FusedBatcher(samplers, b)
+        torch.manual_seed(SEED)
+        model = tvloop.build_model(cfg, batcher.kp_dims).cuda()
+        state = create_state(model, cfg['learning_rate'])
+        step = tvipe.make_train_step(batcher.kp_mask())
+        ring = [{k: torch.from_numpy(v).cuda() for k, v in
+                 batcher.next_batch().items()} for _ in range(TRAIN_RING)]
+        for i in range(TRAIN_WARMUP):
+            step(state, ring[i % TRAIN_RING], SEED + 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks, metrics = [], []
+        t0 = time.perf_counter()
+        for i in range(TEACHER_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            metrics.append(step(state, ring[i % TRAIN_RING], SEED + 1))
+            ev[1].record()
+            marks.append(ev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [m['loss_sum'] / m['n'] for m in fetch_metrics(metrics)]
+        if not np.isfinite(losses).all():
+            raise AssertionError('teacher step losses: {}'.format(losses))
+        ms = statistics.median(a.elapsed_time(e) for a, e in marks)
+        flops = _teacher_flops(model, ring[0])
+        out['batch_{}'.format(batcher.batch_size)] = {
+            'device_ms_per_step': ms,
+            'host_ms_per_step': wall / TEACHER_STEPS * 1e3,
+            'rows_per_s': batcher.batch_size * TEACHER_STEPS / wall,
+            'peak_memory_GiB': torch.cuda.max_memory_allocated() / 2 ** 30,
+            'gflop_per_step': flops / 1e9,
+            'bound_ms': flops / F32_FLOPS_PER_S * 1e3,
+            'tflops_per_s': flops / ms / 1e9,
+            'losses': losses}
+        del model, state, ring
+    return out
+
+
+def _write_teacher_poses(pose_dir, rng):
+    """gz-JSON detections named after the train phase's corpus (video0..3,
+    CLI_FRAMES frames), two on every third frame: (detections, frames)."""
+    os.makedirs(pose_dir)
+    dets = 0
+    for v in range(CLI_VIDEOS):
+        data = []
+        for f in range(CLI_FRAMES):
+            people = []
+            for _ in range(2 if f % 3 == 0 else 1):
+                kp = np.concatenate([rng.uniform(0, 200, (17, 2)),
+                                     rng.uniform(0.3, 1, (17, 1))], axis=1)
+                people.append([0.9, kp.tolist()])
+            dets += len(people)
+            data.append([f, people])
+        store_gz_json(os.path.join(pose_dir, 'video{}.json.gz'.format(v)),
+                      data)
+    return dets
+
+
+def _teacher_apply(save, root, rng):
+    """`apply_vipe` on the card over the teacher's corpus of poses: rows/s,
+    rows checked, and every row against the same teacher on the CPU."""
+    pose_dir = os.path.join(root, 'poses')
+    dets = _write_teacher_poses(pose_dir, rng)
+    out = os.path.join(root, 'embs')
+    t0 = time.perf_counter()
+    av.apply_vipe(pose_dir, save, out, log=lambda *a: None)
+    secs = time.perf_counter() - t0
+    embs = _load_embs(out)
+    for name, rows in embs.items():
+        if [r[0] for r in rows] != list(range(CLI_FRAMES)) or any(
+                e.shape != (2, EMB) or e.dtype != np.float32
+                or not np.isfinite(e).all() for _, e, _ in rows):
+            raise AssertionError('apply_vipe rows of {}'.format(name))
+        if sum(m.get('is_mean', False) for _, _, m in rows) != \
+                len(range(0, CLI_FRAMES, 3)):
+            raise AssertionError('{}: frames with two detections not '
+                                 'averaged'.format(name))
+    av.apply_vipe(pose_dir, save, os.path.join(root, 'embs_cpu'),
+                  device='cpu', log=lambda *a: None)
+    ref = _load_embs(os.path.join(root, 'embs_cpu'))
+    err = max(float(np.abs(a[1] - b[1]).max())
+              for name in embs for a, b in zip(embs[name], ref[name]))
+    if err > TEACHER_CPU_ATOL:
+        raise AssertionError('apply_vipe on the card differs from the CPU '
+                             'by {}'.format(err))
+    x = np.stack([e[0] for _, e, _ in embs['video0']]).astype(np.float64)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    c = x @ x.T
+    return out, {'videos': len(embs), 'detections': dets,
+                 'embedded_rows': 2 * dets, 'seconds': secs,
+                 'rows_per_s': 2 * dets / secs,
+                 'max_abs_diff_vs_cpu': err, 'atol': TEACHER_CPU_ATOL,
+                 'mean_pairwise_cosine': float(
+                     (c.sum() - np.trace(c)) / (len(x) * (len(x) - 1)))}
+
+
+def phase_teacher(card, train):
+    """The VIPE* teacher: train_vipe at full width on synthetic mocap (2
+    epochs, --resume to 3), the step at B = 100 and 4096, the sampler,
+    apply_vipe on the train corpus' videos, and one train_vpd epoch on the
+    teacher's embeddings (ROADMAP C2 read on that student)."""
+    rng = np.random.default_rng(SEED + 4)
+    root = os.path.join(WORK, 'teacher')
+    mocap = os.path.join(root, 'vipe')
+    t0 = time.perf_counter()
+    poses_2d = write_mocap_corpus(mocap, rng)
+    corpus_s = time.perf_counter() - t0
+    env = dict(os.environ, VPD_VIPE_DATA_DIR=mocap)
+    save = os.path.join(root, 'run')
+    common = ['--dataset', '3d', '--save_dir', save,
+              '--checkpoint_frequency', '1', '--render_preview_frequency',
+              '0']
+    first = _train_cli(common + ['--num_epochs', str(TEACHER_EPOCHS)], env,
+                       'train_vipe')
+    resumed = _train_cli(common + ['--num_epochs', str(TEACHER_EPOCHS + 1),
+                                   '--resume'], env, 'train_vipe')
+    with open(os.path.join(save, 'loss.json')) as fp:
+        losses = json.load(fp)
+    if [r['epoch'] for r in losses] != list(range(1, TEACHER_EPOCHS + 2)) \
+            or not np.isfinite([[r['train'], r['val']]
+                                for r in losses]).all():
+        raise AssertionError('train_vipe loss.json: {}'.format(losses))
+    last = 'epoch{:04d}'.format(TEACHER_EPOCHS + 1)
+    want = ['config.json', 'best_epoch.encoder.ckpt'] + [
+        '{}.{}.ckpt'.format(last, c) for c in ('encoder', 'decoder-3d',
+                                               'optimizer')]
+    missing = [f for f in want if not os.path.exists(os.path.join(save, f))]
+    if missing:
+        raise AssertionError('train_vipe wrote no {}'.format(missing))
+    with open(os.path.join(save, 'config.json')) as fp:
+        cfg = json.load(fp)
+    if (cfg['encoder_arch'], cfg['decoder_arch'], cfg['embedding_dim'],
+            cfg['batch_size']) != ([2, 1024], [2, 512], EMB, 100):
+        raise AssertionError('train_vipe config: {}'.format(cfg))
+
+    step = _teacher_step_on_card(mocap)
+    emb_dir, apply = _teacher_apply(save, root, rng)
+
+    # the whole chain: a student epoch on the teacher's embeddings
+    sports_env = dict(os.environ, VPD_SPORTS_DIR=train['sports'])
+    student = os.path.join(root, 'student')
+    student_run = _train_cli(
+        ['fs', '--save_dir', student, '--emb_dir', emb_dir, '--crop_shards',
+         train['shard_dir'], '--flow_img', 'flow', '--motion',
+         '--checkpoint_frequency', '1', '--num_epochs', '1'], sports_env)
+    with open(os.path.join(student, 'loss.json')) as fp:
+        student_losses = json.load(fp)
+    if not np.isfinite([student_losses[0]['train'],
+                        student_losses[0]['val']]).all():
+        raise AssertionError('train_vpd on the teacher: {}'.format(
+            student_losses))
+    c2 = _embedding_spread(student, train['shard_dir'],
+                           os.path.join(train['sports'], 'fs', 'crops'),
+                           os.path.join(root, 'student_embs'))
+    per_epoch = 500 + 50  # batches of 100: 50,000 train + 5,000 val rows
+    epoch_s = first[1] + resumed[1]
+    emit({'phase': 'teacher', 'card': card,
+          'mocap': {'families': len(MOCAP_DIRS), 'poses_2d': poses_2d,
+                    'write_seconds': corpus_s},
+          'cli': {'batch': 100, 'epochs': len(epoch_s),
+                  'run_seconds': [first[0], resumed[0]],
+                  'epoch_seconds': epoch_s,
+                  'rows_per_s_per_epoch': [100 * per_epoch / s
+                                           for s in epoch_s],
+                  'losses': [[r['train'], r['val']] for r in losses]},
+          'step': step, 'apply_vipe': apply,
+          'student_on_teacher': {
+              'run_seconds': student_run[0],
+              'epoch_seconds': student_run[1],
+              'losses': [student_losses[0]['train'],
+                         student_losses[0]['val']],
+              'c2': c2}})
+
+
 def main():
     phase_env()
     card = card_line()
@@ -1498,7 +1819,9 @@ def main():
                'max_abs_err': dtw_abs, 'max_rel_err': dtw_rel,
                **phase_recognize(card), 'library_ms': None}
         preprocess['launches'] = phase_slice(card)
-        phase_cache(card, phase_train(card))
+        train = phase_train(card)
+        phase_cache(card, train)
+        phase_teacher(card, train)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card)

@@ -31,6 +31,12 @@ peaks at the corpus plus at most one shard, and the cached step gathers
 without a host sync; with cuDNN deterministic, the cached and streamed
 steps on the same rows give the same loss (rel 1e-6) and parameters (max
 rel 1e-5); the CLI trains one epoch from the cache on the card.
+
+The VIPE* teacher (no hand kernel: cuBLAS linears and plain torch): its
+train step at dropout 0 on cuda against the same step on the CPU with TF32
+off (loss and BN running statistics at rtol 1e-5, parameters within 2.5 x
+lr), `normalize_2d_batch_torch` on cuda against the numpy normalizer
+(atol 1e-6), and no host sync inside a train step (dropout on, seeded).
 """
 
 import copy
@@ -44,13 +50,19 @@ import torch
 from vpd_tpu_torch.core.io import store_embs_pickle
 from vpd_tpu_torch.data.augment import (sample_train_augment,
                                         train_augment_batch)
+from vpd_tpu_torch.data import vipe_sampler as tvs
 from vpd_tpu_torch.data.crops import CropBatchSource
 from vpd_tpu_torch.data.hbm_cache import CacheIndexSource, DeviceCropCache
 from vpd_tpu_torch.data.shards import ShardReader, write_raw_shards
 from vpd_tpu_torch.ops import _build
 from vpd_tpu_torch.ops import dtw_kernel as tdtw
 from vpd_tpu_torch.ops import preprocess as tpre
+from vpd_tpu_torch.geometry import coco as tcoco
+from vpd_tpu_torch.geometry.camera import random_project_offsets
+from vpd_tpu_torch.models.fc import FlaxDropout
 from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
+from vpd_tpu_torch.train import vipe as tvipe
+from vpd_tpu_torch.train import vipe_loop as tvloop
 from vpd_tpu_torch.train import vpd as tvpd
 from vpd_tpu_torch.tools import train_vpd as tcli
 from vpd_tpu_torch.train.vpd_loop import build_student, default_config
@@ -594,3 +606,110 @@ def test_cli_trains_from_the_cache_on_card(cuda_device, tmp_path,
         losses = json.load(fp)
     assert np.isfinite([losses[0]['train'], losses[0]['val']]).all()
     assert os.path.exists(os.path.join(save, 'epoch0001.optimizer.ckpt'))
+
+
+# ------------------------------------------------------ the VIPE* teacher
+
+def _teacher_batcher(batch_size, seed=0):
+    """A FusedBatcher over three synthetic mocap families (3 sequences x 8
+    frames x 2 cameras of random bones and synthetic projections)."""
+    rng = np.random.default_rng(seed)
+    samplers = []
+    for i, fam in enumerate(('human36m', 'nba2k', 'amass')):
+        spec = tvs.FAMILIES[fam].spec
+        seqs, poses = [], {}
+        for p in range(3):
+            key = ('p{}'.format(p), 'a')
+            dirs = rng.normal(size=(8, spec.num_edges, 3))
+            offsets = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True) \
+                * rng.uniform(0.1, 0.3, (8, spec.num_edges, 1))
+            poses[key] = [(np.zeros(3), 0., o.astype(np.float32))
+                          for o in offsets]
+            nums = [25 * f if fam == 'amass' else f for f in range(8)]
+            seqs.append((key, [(n, [('c{}'.format(c), random_project_offsets(
+                spec, offsets[f], rng)) for c in range(2)])
+                for f, n in enumerate(nums)]))
+        samplers.append(tvs.VIPESampler(tvs.FAMILIES[fam], seqs, poses,
+                                        target_len=64, seed=seed + i))
+    return tvs.FusedBatcher(samplers, batch_size)
+
+
+def _teacher(batcher):
+    cfg = tvloop.default_config(['a', 'b', 'c'], [None] * 3, [None] * 3,
+                                embedding_dim=8, encoder_arch=(2, 64),
+                                decoder_arch=(2, 32))
+    torch.manual_seed(0)
+    return tvloop.build_model(cfg, batcher.kp_dims)
+
+
+@pytest.mark.cuda
+def test_teacher_train_step_matches_cpu(cuda_device):
+    lr = 1e-3
+    batcher = _teacher_batcher(32)
+    cpu_model = _teacher(batcher)
+    for m in cpu_model.modules():
+        if isinstance(m, FlaxDropout):
+            m.rate = 0.
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    batch = {k: torch.from_numpy(v) for k, v in batcher.next_batch().items()}
+    step = tvipe.make_train_step(batcher.kp_mask())
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m_cpu = step(tvpd.create_state(cpu_model, lr), batch, 1)
+        m_gpu = step(tvpd.create_state(gpu_model, lr),
+                     {k: v.to(cuda_device) for k, v in batch.items()}, 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for k in ('loss_sum', 'contra_sum', 'ds_loss_sum'):
+        np.testing.assert_allclose(m_gpu[k].cpu().numpy(),
+                                   m_cpu[k].numpy(), rtol=1e-5, err_msg=k)
+    assert torch.equal(m_gpu['ds_count'].cpu(), m_cpu['ds_count'])
+    gpu_sd = gpu_model.state_dict()
+    for name, t in cpu_model.state_dict().items():
+        got = gpu_sd[name].cpu()
+        if 'running' in name:
+            np.testing.assert_allclose(got.numpy(), t.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+        elif not name.endswith('num_batches_tracked'):
+            np.testing.assert_allclose(got.numpy(), t.numpy(),
+                                       atol=2.5 * lr, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('zero_confs,bones', [(False, False), (True, True)])
+def test_pose_normalizer_on_card(cuda_device, zero_confs, bones):
+    rng = np.random.default_rng(3)
+    kps = rng.uniform(0, 200, (1000, 17, 3)).astype(np.float32)
+    kps[5, [5, 6, 11, 12], :2] = 4.  # zero torso distance
+    flips = rng.random(1000) < 0.5
+    got = tcoco.normalize_2d_batch_torch(
+        torch.from_numpy(kps).to(cuda_device),
+        torch.from_numpy(flips).to(cuda_device), zero_confs, bones)
+    assert got.is_cuda
+    np.testing.assert_allclose(
+        got.cpu().numpy(), tcoco.normalize_2d_skeleton_batch(
+            kps, flips, zero_confs, bones), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_teacher_step_makes_no_host_sync(cuda_device):
+    """Dropout on (seeded masks), fused AdamW: after the first step, which
+    makes the step's constants, no step syncs; the loss falls on one
+    batch."""
+    batcher = _teacher_batcher(64)
+    model = _teacher(batcher).to(cuda_device)
+    state = tvpd.create_state(model, 1e-3)
+    step = tvipe.make_train_step(batcher.kp_mask())
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in batcher.next_batch().items()}
+    metrics = [step(state, batch, 1)]
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(7):
+            metrics.append(step(state, batch, 1))
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    losses = torch.stack([m['loss_sum'] for m in metrics]).tolist()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert state.step == 8

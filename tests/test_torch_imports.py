@@ -44,7 +44,9 @@ def test_port_and_chip_smoke_import_no_jax():
                  'train.vpd', 'train.vpd_loop', 'tools.train_vpd',
                  'core.metrics', 'data.hbm_cache', 'data.native_loader',
                  'data.parallel_batcher', 'models.torch_compat',
-                 'tools.pack_crops'):
+                 'tools.pack_crops', 'geometry.coco', 'geometry.render',
+                 'data.vipe_sampler', 'train.vipe', 'train.vipe_loop',
+                 'infer.apply_vipe', 'tools.train_vipe', 'tools.apply_vipe'):
         assert 'vpd_tpu_torch.' + name in out['modules']
     assert out['loaded'] == []
 

@@ -10,11 +10,23 @@ import torch
 
 
 def fetch_metrics(metrics):
-    """List of {name: 0-d tensor or number} -> the same list of {name:
-    float}, with one device-to-host copy."""
+    """List of {name: tensor or number} -> the same list with each 0-d
+    tensor and number as a float and each other tensor as a float32 numpy
+    array of its shape, with one device-to-host copy."""
     tensors = [v for m in metrics for v in m.values() if torch.is_tensor(v)]
-    values = (iter(torch.stack([t.detach().float().reshape(())
-                                for t in tensors]).cpu().tolist())
-              if tensors else iter(()))
-    return [{k: next(values) if torch.is_tensor(v) else float(v)
-             for k, v in m.items()} for m in metrics]
+    flat = (torch.cat([t.detach().float().reshape(-1) for t in tensors])
+            .cpu().numpy() if tensors else None)
+    offset = 0
+    out = []
+    for m in metrics:
+        row = {}
+        for k, v in m.items():
+            if not torch.is_tensor(v):
+                row[k] = float(v)
+                continue
+            chunk = flat[offset:offset + v.numel()]
+            offset += v.numel()
+            row[k] = (float(chunk[0]) if v.dim() == 0
+                      else chunk.reshape(tuple(v.shape)).copy())
+        out.append(row)
+    return out

@@ -47,8 +47,13 @@ class MultiprocessBatcher:
     processes), like DataLoader(num_workers=0).
     """
 
-    def __init__(self, make_source, num_workers, num_batches, *, depth=2):
+    def __init__(self, make_source, num_workers, num_batches, *, depth=2,
+                 template=None):
+        """`template`: a parent-side source whose attributes stand in for
+        those the batcher lacks (a `FusedBatcher`'s `kp_dims` and
+        `kp_mask`, say)."""
         self.num_batches = num_batches
+        self._template = template
         self._inline = None
         self._queues = []
         self._procs = []
@@ -96,6 +101,12 @@ class MultiprocessBatcher:
         for q in self._queues:
             q.close()
         self._procs, self._queues = [], []
+
+    def __getattr__(self, name):
+        template = self.__dict__.get('_template')
+        if template is not None and not name.startswith('_'):
+            return getattr(template, name)
+        raise AttributeError(name)
 
     def __enter__(self):
         return self

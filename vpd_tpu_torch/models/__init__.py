@@ -1,2 +1,2 @@
-from .fc import FCNet  # noqa
+from .fc import FCNet, FCPoseDecoder, FCResNet, FCResNetPoseDecoder  # noqa
 from .resnet import ResNet, ENCODER_ARCH, build_encoder  # noqa

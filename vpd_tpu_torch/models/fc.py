@@ -1,11 +1,73 @@
-"""Fully-connected models: `FCNet`, the MLP behind the student's motion head.
+"""Fully-connected models: the VIPE* teacher's encoder and pose decoders,
+and `FCNet`, also the MLP behind the student's motion head.
 
-Counterpart of `vpd_tpu/models/fc.py:22-49` (reference
-`models/module.py:133-153`). The FCResNet teacher and the pose decoders
-are not ported yet (ROADMAP A8).
+Counterpart of `vpd_tpu/models/fc.py` (reference `models/module.py:
+133-227`):
+
+* `FCNet`      — plain MLP with ReLU/dropout.
+* `FCResNet`   — linear stem + stacked residual MLP blocks; the VIPE*
+  encoder. Each block computes ``block(x) - x``, the reference's sign
+  (QUIRKS.md), which trained VIPE* weights depend on.
+* `FCPoseDecoder` / `FCResNetPoseDecoder` — a trunk + one linear head per
+  3D mocap dataset. All heads are one (k, h, d) parameter evaluated as one
+  einsum; each row then takes its own head's output by `dataset_id`, so
+  one step serves every dataset of a fused batch.
+
+Layers behave as flax's: Dense layers start lecun-normal with zero bias,
+BatchNorm is `FlaxBatchNorm1d` (momentum 0.9, eps 1e-5, the biased
+variance into the running statistics) and dropout is flax's inverted
+dropout (`FlaxDropout`), whose keep mask the train step draws from a
+seeded generator (`set_dropout_draw`).
 """
 
+import torch
 from torch import nn
+
+from .resnet import FlaxBatchNorm1d
+
+
+def _dense(in_dim, out_dim):
+    """`nn.Linear` initialised as flax's Dense: lecun normal, zero bias."""
+    layer = nn.Linear(in_dim, out_dim)
+    nn.init.normal_(layer.weight, std=in_dim ** -0.5)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+class FlaxDropout(nn.Module):
+    """flax's `nn.Dropout`: in train mode each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else zeroed; eval
+    mode and rate 0 pass the input through.
+
+    The keep mask is `draw(shape, keep_prob, device)`, set with
+    `set_dropout_draw` (the train step's seeded generator; tests feed
+    masks): train mode at a rate above 0 without one raises.
+    """
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = rate
+        self.draw = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0:
+            return x
+        keep = 1. - self.rate
+        if keep == 0:
+            return torch.zeros_like(x)
+        if self.draw is None:
+            raise RuntimeError('FlaxDropout in train mode needs a mask '
+                               'source: set_dropout_draw(model, draw)')
+        mask = self.draw(x.shape, keep, x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_dropout_draw(model, draw):
+    """Give every `FlaxDropout` in `model` the mask source `draw` (None
+    clears it)."""
+    for m in model.modules():
+        if isinstance(m, FlaxDropout):
+            m.draw = draw
 
 
 class FCNet(nn.Module):
@@ -19,11 +81,8 @@ class FCNet(nn.Module):
         super().__init__()
         dims = [input_dim, *hidden_dims, output_dim]
         self.layers = nn.ModuleList(
-            nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
-        self.dropout = nn.Dropout(dropout)
-        for layer in self.layers:  # flax Dense init: lecun normal, zero bias
-            nn.init.normal_(layer.weight, std=layer.in_features ** -0.5)
-            nn.init.zeros_(layer.bias)
+            _dense(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.dropout = FlaxDropout(dropout)
 
     def forward(self, x):
         x = self.layers[0](x)
@@ -33,3 +92,98 @@ class FCNet(nn.Module):
             if k < last:
                 x = self.dropout(x)
         return x
+
+
+class FcResidualBlock(nn.Module):
+    """(Linear-BN-ReLU-Drop) x2, returning ``block(x) - x`` (QUIRKS.md)."""
+
+    def __init__(self, hidden_dim, dropout):
+        super().__init__()
+        self.dense = nn.ModuleList(_dense(hidden_dim, hidden_dim)
+                                   for _ in range(2))
+        self.bn = nn.ModuleList(FlaxBatchNorm1d(hidden_dim)
+                                for _ in range(2))
+        self.dropout = FlaxDropout(dropout)
+
+    def forward(self, x):
+        h = x
+        for dense, bn in zip(self.dense, self.bn):
+            h = self.dropout(bn(dense(h)).relu())
+        return h - x
+
+
+class FCResNet(nn.Module):
+    """Linear stem + ReLU + `num_blocks` residual MLP blocks (+ out linear;
+    `out_dim` None exposes the trunk's features). The VIPE* encoder
+    (reference `models/module.py:178-190`)."""
+
+    def __init__(self, input_dim, out_dim, num_blocks, hidden_dim,
+                 dropout=0.3):
+        super().__init__()
+        self.stem = _dense(input_dim, hidden_dim)
+        self.blocks = nn.ModuleList(FcResidualBlock(hidden_dim, dropout)
+                                    for _ in range(num_blocks))
+        self.out = _dense(hidden_dim, out_dim) if out_dim is not None \
+            else None
+
+    def forward(self, x):
+        x = self.stem(x).relu()
+        for block in self.blocks:
+            x = block(x)
+        return self.out(x) if self.out is not None else x
+
+
+class _MultiHead(nn.Module):
+    """All per-dataset linear heads as one einsum + dataset_id gather.
+
+    Heads output `head_dim` (the largest target) features; each dataset
+    reads only its own first columns (the train step masks the rest).
+    """
+
+    def __init__(self, num_heads, in_dim, head_dim):
+        super().__init__()
+        # flax's lecun normal on a (k, h, d) kernel: fan_in = k * h
+        self.kernel = nn.Parameter(
+            torch.randn(num_heads, in_dim, head_dim)
+            * (num_heads * in_dim) ** -0.5)
+        self.bias = nn.Parameter(torch.zeros(num_heads, head_dim))
+
+    def forward(self, x, dataset_id):
+        all_heads = torch.einsum('nh,khd->nkd', x, self.kernel) + self.bias
+        idx = dataset_id.to(torch.long)[:, None, None].expand(
+            -1, 1, all_heads.shape[-1])
+        return all_heads.gather(1, idx).squeeze(1)
+
+
+class FCPoseDecoder(nn.Module):
+    """FCNet trunk -> ReLU -> per-dataset linear head (ref module.py:211-227).
+
+    `target_dims` are the flattened 3D-feature sizes per dataset; heads are
+    padded to the max and selected by `dataset_id`.
+    """
+
+    def __init__(self, input_dim, hidden_dims, target_dims, dropout=0.):
+        super().__init__()
+        assert len(hidden_dims) >= 2
+        self.trunk = FCNet(input_dim, hidden_dims[:-1], hidden_dims[-1],
+                           dropout=dropout)
+        self.head = _MultiHead(len(target_dims), hidden_dims[-1],
+                               max(target_dims))
+
+    def forward(self, emb, dataset_id):
+        return self.head(self.trunk(emb).relu(), dataset_id)
+
+
+class FCResNetPoseDecoder(nn.Module):
+    """FCResNet trunk -> per-dataset head (ref module.py:193-208)."""
+
+    def __init__(self, input_dim, num_blocks, hidden_dim, target_dims,
+                 dropout=0.):
+        super().__init__()
+        self.trunk = FCResNet(input_dim, None, num_blocks, hidden_dim,
+                              dropout=dropout)
+        self.head = _MultiHead(len(target_dims), hidden_dim,
+                               max(target_dims))
+
+    def forward(self, emb, dataset_id):
+        return self.head(self.trunk(emb), dataset_id)

@@ -8,21 +8,30 @@ arrays under flax's own module names (creation order):
   Bottleneck  Conv_0, BatchNorm_0, Conv_1, BatchNorm_1, Conv_2, bn_last
               [, Conv_3, BatchNorm_2]
   MotionHead  FCNet_0/Dense_k
+  VIPEModel   encoder: FCResNet; decoder: FCPoseDecoder | FCResNetPoseDecoder
+  FCResNet    Dense_0 (stem), FcResidualBlock_i, Dense_1 (out)
+  FcResidualBlock  Dense_0, BatchNorm_0, Dense_1, BatchNorm_1
+  FCPoseDecoder    FCNet_0/Dense_k, _MultiHead_0
+  FCResNetPoseDecoder  FCResNet_0, _MultiHead_0
 
 Layouts: conv kernel (kh, kw, I, O) <-> weight (O, I, kh, kw); dense
 kernel (I, O) <-> weight (O, I); BN scale/bias <-> weight/bias and
-batch_stats mean/var <-> running_mean/running_var. Both directions check
-that every flax leaf is used exactly once and every torch parameter and
-buffer (bar BN's `num_batches_tracked` counter) is filled.
+batch_stats mean/var <-> running_mean/running_var; the multi-head kernel
+(k, h, d) and bias (k, d) keep their shapes. Both directions check that
+every flax leaf is used exactly once and every torch parameter and buffer
+(bar BN's `num_batches_tracked` counter) is filled.
 
-`student_params_to_flax` / `student_params_from_flax` map one tensor per
-parameter of a student (AdamW's moments, say) the same way, to and from
-flax's `{'encoder': ..., 'motion': ...}` params trees.
+`student_params_to_flax` / `student_params_from_flax` (and the `vipe_`
+pair for the teacher) map one tensor per parameter (AdamW's moments, say)
+the same way, to and from flax's params trees: `{'encoder': ...,
+'motion': ...}` for a student, `{'encoder': ..., 'decoder': ...}` for the
+teacher.
 """
 
 import numpy as np
 import torch
 
+from .fc import FCResNet
 from .resnet import BasicBlock, Bottleneck
 
 _BLOCK_NAMES = {
@@ -49,6 +58,8 @@ _LEAVES = {
            ('bias', 'params', 'bias', None, None),
            ('running_mean', 'batch_stats', 'mean', None, None),
            ('running_var', 'batch_stats', 'var', None, None)],
+    'multihead': [('kernel', 'params', 'kernel', None, None),
+                  ('bias', 'params', 'bias', None, None)],
 }
 
 
@@ -71,6 +82,44 @@ def _encoder_entries(model):
 def _motion_entries(head):
     return [('net.layers.{}'.format(k), ('FCNet_0', 'Dense_{}'.format(k)),
              'dense') for k in range(len(head.net.layers))]
+
+
+def _fcresnet_entries(net):
+    entries = [('stem', ('Dense_0',), 'dense')]
+    for i in range(len(net.blocks)):
+        block = 'FcResidualBlock_{}'.format(i)
+        for j in range(2):
+            entries += [('blocks.{}.dense.{}'.format(i, j),
+                         (block, 'Dense_{}'.format(j)), 'dense'),
+                        ('blocks.{}.bn.{}'.format(i, j),
+                         (block, 'BatchNorm_{}'.format(j)), 'bn')]
+    if net.out is not None:
+        entries.append(('out', ('Dense_1',), 'dense'))
+    return entries
+
+
+def _pose_decoder_entries(decoder):
+    if isinstance(decoder.trunk, FCResNet):
+        trunk = [('trunk.' + t, ('FCResNet_0',) + f, kind)
+                 for t, f, kind in _fcresnet_entries(decoder.trunk)]
+    else:
+        trunk = [('trunk.layers.{}'.format(k),
+                  ('FCNet_0', 'Dense_{}'.format(k)), 'dense')
+                 for k in range(len(decoder.trunk.layers))]
+    return trunk + [('head', ('_MultiHead_0',), 'multihead')]
+
+
+def _vipe_parts(model):
+    parts = [('encoder', _fcresnet_entries(model.encoder))]
+    if model.decoder is not None:
+        parts.append(('decoder', _pose_decoder_entries(model.decoder)))
+    return parts
+
+
+def _prefixed(parts):
+    """One entry list over a model's parts, under the parts' names."""
+    return [('{}.{}'.format(prefix, t), (prefix,) + f, kind)
+            for prefix, entries in parts for t, f, kind in entries]
 
 
 def _flatten(tree, prefix=()):
@@ -152,6 +201,18 @@ def motion_to_flax(head):
     return _export(head, _motion_entries(head))
 
 
+def load_vipe_from_flax(model, variables):
+    """Fill a `train.vipe.VIPEModel` from flax `{'params': {'encoder': ...,
+    'decoder': ...}, 'batch_stats': {'encoder': ...}}` (in place)."""
+    return _load(model, _prefixed(_vipe_parts(model)), variables)
+
+
+def vipe_to_flax(model):
+    """`VIPEModel` -> flax `{'params', 'batch_stats'}` of float32 arrays,
+    under 'encoder' (and 'decoder')."""
+    return _export(model, _prefixed(_vipe_parts(model)))
+
+
 def _student_parts(student):
     parts = [('encoder', _encoder_entries(student.encoder))]
     if student.motion is not None:
@@ -170,12 +231,9 @@ def _param_leaves(entries):
 
 
 @torch.no_grad()
-def student_params_to_flax(student, values):
-    """{'encoder.conv1.weight': tensor, ...}, one tensor per parameter of
-    a `VPDStudent` -> {'encoder': tree, 'motion': tree} of numpy arrays in
-    flax's layouts and the tensors' dtypes."""
+def _params_to_flax(parts, values):
     out = {}
-    for prefix, entries in _student_parts(student):
+    for prefix, entries in parts:
         tree = out[prefix] = {}
         for tname, fpath, _, to_flax in _param_leaves(entries):
             t = values['{}.{}'.format(prefix, tname)].detach()
@@ -187,11 +245,9 @@ def student_params_to_flax(student, values):
     return out
 
 
-def student_params_from_flax(student, tree):
-    """Inverse of `student_params_to_flax`: {torch parameter name: tensor
-    in torch's layout}. Every leaf of `tree` must be used."""
+def _params_from_flax(parts, tree):
     out = {}
-    for prefix, entries in _student_parts(student):
+    for prefix, entries in parts:
         leaves = _flatten(tree[prefix])
         for tname, fpath, to_torch, _ in _param_leaves(entries):
             if fpath not in leaves:
@@ -203,7 +259,31 @@ def student_params_from_flax(student, tree):
         if leaves:
             raise ValueError('unused flax leaves: {}'.format(
                 sorted('/'.join(k) for k in leaves)))
-    if set(tree) != {p for p, _ in _student_parts(student)}:
-        raise ValueError('flax components {} for a student of {}'.format(
-            sorted(tree), [p for p, _ in _student_parts(student)]))
+    if set(tree) != {p for p, _ in parts}:
+        raise ValueError('flax components {} for a model of {}'.format(
+            sorted(tree), [p for p, _ in parts]))
     return out
+
+
+def student_params_to_flax(student, values):
+    """{'encoder.conv1.weight': tensor, ...}, one tensor per parameter of
+    a `VPDStudent` -> {'encoder': tree, 'motion': tree} of numpy arrays in
+    flax's layouts and the tensors' dtypes."""
+    return _params_to_flax(_student_parts(student), values)
+
+
+def student_params_from_flax(student, tree):
+    """Inverse of `student_params_to_flax`: {torch parameter name: tensor
+    in torch's layout}. Every leaf of `tree` must be used."""
+    return _params_from_flax(_student_parts(student), tree)
+
+
+def vipe_params_to_flax(model, values):
+    """`student_params_to_flax` for a `VIPEModel`: {'encoder': tree[,
+    'decoder': tree]}."""
+    return _params_to_flax(_vipe_parts(model), values)
+
+
+def vipe_params_from_flax(model, tree):
+    """Inverse of `vipe_params_to_flax`."""
+    return _params_from_flax(_vipe_parts(model), tree)

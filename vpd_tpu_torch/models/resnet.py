@@ -36,8 +36,9 @@ from torch import nn
 FLAX_BN_MOMENTUM = 0.9
 
 
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """`nn.BatchNorm2d` (same state-dict names) with flax's train mode.
+class _FlaxBatchNorm:
+    """Mixin giving a torch BatchNorm class (same state-dict names) flax's
+    train mode.
 
     Train mode normalizes with the batch mean and biased variance, which
     F.batch_norm computes in float32 or wider for any input dtype, and
@@ -67,6 +68,15 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(m * self.running_var
                                    + (1 - m) * (var * ((n - 1) / n)))
         return y
+
+
+class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """`nn.BatchNorm2d` with flax's train mode (the ResNet student)."""
+
+
+class FlaxBatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """`nn.BatchNorm1d` with flax's train mode, over (N, C) features (the
+    FC teacher)."""
 
 
 class CastConv2d(nn.Conv2d):

@@ -270,10 +270,11 @@ def _params(state):
     return dict(state.model.named_parameters())
 
 
-def optimizer_to_flax(state):
+def optimizer_to_flax(state, params_to_flax=student_params_to_flax):
     """AdamW's state as flax writes optax.adamw's (`to_state_dict`):
     {'0': {'count': int32 (), 'mu': params tree, 'nu': params tree},
-    '1': {}, '2': {}}, the moments in flax's layouts."""
+    '1': {}, '2': {}}, the moments in flax's layouts. `params_to_flax`
+    maps the model's parameters (a student's by default)."""
     params = _params(state)
     opt = state.optimizer.state
     count = 0
@@ -285,16 +286,17 @@ def optimizer_to_flax(state):
         for key, torch_key in (('mu', 'exp_avg'), ('nu', 'exp_avg_sq')):
             moments[key][name] = st[torch_key] if st else torch.zeros_like(p)
     return {'0': {'count': np.array(count, np.int32),
-                  **{k: student_params_to_flax(state.model, v)
+                  **{k: params_to_flax(state.model, v)
                      for k, v in moments.items()}},
             '1': {}, '2': {}}
 
 
-def load_optimizer_from_flax(state, tree):
+def load_optimizer_from_flax(state, tree,
+                             params_from_flax=student_params_from_flax):
     """Restore AdamW's moments and step count from `optimizer_to_flax`'s
     layout (as vpd_tpu writes it)."""
     count = int(tree['0']['count'])
-    mu, nu = (student_params_from_flax(state.model, tree['0'][k])
+    mu, nu = (params_from_flax(state.model, tree['0'][k])
               for k in ('mu', 'nu'))
     sd = state.optimizer.state_dict()
     params = _params(state)
