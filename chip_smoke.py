@@ -78,6 +78,30 @@ line each; any failure raises and exits non-zero:
              rows checked, every row against the CPU at atol 1e-4); one
              `train_vpd` epoch on the teacher's embeddings, its student
              extracted and ROADMAP C2 read on it
+  heads      the learned heads on frozen embeddings (no hand kernel: an
+             explicit GRU/LSTM cell in a time loop of batched cuBLAS
+             products, its train steps in CUDA graphs), at full width
+             (hidden 128, depth-2 BiGRU, the recognize phase's (2, 32)
+             fs rows, batch 50; proposals at batch 100 on 250-frame
+             windows), depth cut to 12 epochs (3 for lstm and cnn; the
+             CLI's default is 500) and the detect CLI's to 2 (200): the
+             recognize CLI with gru + attention fused at -ne 4 16 64 x 10
+             trials and at -ne -1 (accuracy held at >= 0.9), `-w` on its
+             saved head giving the same test_pred.csv, one lstm and one
+             cnn run; 3 members of the fused sweep against sequential
+             trainers on the card (float64 held to rtol 2e-4 / atol 2e-5,
+             float32 to atol 2e-4); the detect CLI's sequential ensemble
+             (3 KFold members) against its fused one on the card, the
+             same bars; one step on cuda against the CPU;
+             an epoch of the sweep under set_sync_debug_mode('error');
+             ms per fused (M = 10) and sequential step, with and without
+             CUDA graphs, and TFLOP/s against the float32 peak; BiRNN
+             fwd and fwd + bwd at B = 50, T = 128 beside cuDNN's nn.GRU on
+             the same weights (held to each other); the proposal step at
+             B = 100, T = 250; the ensemble's predict per video; `python
+             -m vpd_tpu_torch.tools.detect fs_jump` on a synthetic
+             whole-video corpus (`write_detect_corpus`, 3 members, 2
+             epochs), its AP table above that of random scores
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
@@ -124,8 +148,14 @@ from vpd_tpu_torch.tasks import neighbors as nb
 from vpd_tpu_torch.tools import pack_crops as pack_cli
 from vpd_tpu_torch.tools import recognize as recognize_cli
 from vpd_tpu_torch.tools import train_vipe as vipe_cli
+from vpd_tpu_torch.models import gru as tgru
+from vpd_tpu_torch.models.fc import set_dropout_draw
+from vpd_tpu_torch.tasks import detect as tdet
+from vpd_tpu_torch.train import classifier as tcls
+from vpd_tpu_torch.train import proposal as tprop
 from vpd_tpu_torch.train import vipe as tvipe
 from vpd_tpu_torch.train import vipe_loop as tvloop
+from vpd_tpu_torch.train.fused_sweep import FusedSweepTrainer
 from vpd_tpu_torch.train.vpd import (cache_gather, create_state,
                                      forward_backward,
                                      make_cached_train_step,
@@ -178,6 +208,21 @@ TEACHER_BATCHES = (100, 4096)
 TEACHER_STEPS = 20
 TEACHER_SAMPLER_BATCHES = 50
 TEACHER_CPU_ATOL = 1e-4    # float32 on the card (TF32 off) against the CPU
+# the heads on frozen embeddings (no hand kernel): full width (hidden 128,
+# depth-2 BiGRU, 32-d rows with flips, batch 50 / 100, 250-frame windows),
+# depth in epochs cut from the CLIs' 500 (recognize) and 200 (detect)
+HEADS_H, HEADS_B, HEADS_T = 128, 50, 128
+HEADS_EPOCHS, HEADS_VAL_FREQ = 12, 4
+HEADS_SHORT_EPOCHS = 3     # the lstm and cnn runs
+HEADS_FUSED_M = 10         # the few-shot sweep's trials
+HEADS_ROWS = 768           # a 64-shot trial: 6 classes x 64 x 2 flips
+HEADS_CHECK = dict(members=3, epochs=3)  # fused against sequential
+HEADS_RTOL, HEADS_ATOL = 2e-4, 2e-5      # tests/test_fused_sweep.py's bar
+HEADS_F32_ATOL = 2e-4      # the same in float32: 3x its drift, 5.9e-5
+HEADS_CPU_RTOL = 1e-5      # one step, float32 on the card against the CPU
+HEADS_CPU_PARAM_ATOL = 2e-4  # its parameters: lr / 5, 4x the 4.6e-5 drift
+PROPOSAL_B, PROPOSAL_T = 100, 250
+DETECT_MEMBERS, DETECT_EPOCHS, DETECT_FRAMES = 3, 2, 1500
 
 
 # the teacher's synthetic mocap corpus, in tools/paths' layout; the people
@@ -195,6 +240,72 @@ MOCAP_FRAMES, MOCAP_CAMERAS = 60, 4
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def _write_video_stub(path, fps=25., num_frames=3, dim=32):
+    """A tiny real mp4, so that video metadata gives the corpus fps."""
+    import cv2
+
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'mp4v'), fps,
+                         (dim, dim))
+    if not vw.isOpened():
+        raise RuntimeError('cv2 VideoWriter failed for ' + path)
+    for _ in range(num_frames):
+        vw.write(np.zeros((dim, dim, 3), np.uint8))
+    vw.release()
+
+
+def write_detect_corpus(root, rng, num_train=8, num_test=3, frames=1500,
+                        emb_dim=EMB):
+    """A synthetic fs corpus of whole videos for temporal detection, laid
+    out as vpd_tpu's bench_pipeline_e2e.make_corpus lays one out (teacher
+    embeddings only): action windows of 20-31 frames 24-39 frames apart,
+    a class per window, rows (frame, (2, emb_dim) orig + flip, {}) of
+    N(0, 0.3) noise with +3 on the class's axis inside a window; mp4 stubs
+    at 25 fps under `<root>/sports/fs/videos`; all.txt, val.ids.txt and
+    train.localize.{0,1}.txt under `<root>/action_dataset/fs`. Returns
+    (emb_dir, action_dir, sports_dir, number of actions)."""
+    test_prefix = 'men_olympic_short_program_2018'
+    sports = os.path.join(root, 'sports')
+    video_dir = os.path.join(sports, 'fs', 'videos')
+    emb_dir = os.path.join(root, 'embs')
+    label_dir = os.path.join(root, 'action_dataset', 'fs')
+    for d in (video_dir, emb_dir, label_dir):
+        os.makedirs(d, exist_ok=True)
+    names = ['fs_train_video_{:02d}'.format(i) for i in range(num_train)]
+    names += ['{}_v{:02d}'.format(test_prefix, i) for i in range(num_test)]
+    actions = []
+    for video in names:
+        _write_video_stub(os.path.join(video_dir, video + '.mp4'))
+        frame_cls = np.full(frames, -1, np.int64)
+        cursor = int(25 * 2.5) + 12
+        while cursor + 40 < frames:
+            length = int(rng.integers(20, 32))
+            cls = int(rng.integers(len(FS_CLASSES)))
+            actions.append((video, cursor, cursor + length, cls))
+            frame_cls[cursor:cursor + length] = cls
+            cursor += length + int(rng.integers(24, 40))
+        emb = rng.normal(0, 0.3, (frames, emb_dim))
+        hit = np.flatnonzero(frame_cls >= 0)
+        emb[hit, frame_cls[hit]] += 3.
+        emb = np.stack([emb, emb + rng.normal(0, 0.05, emb.shape)], 1)
+        store_embs_pickle(os.path.join(emb_dir, video + '.emb.pkl'),
+                          [(f, e, {}) for f, e in enumerate(
+                              emb.astype(np.float32))])
+    ids = ['{}:{}:{}'.format(v, s, e) for v, s, e, _ in actions]
+    with open(os.path.join(label_dir, 'all.txt'), 'w') as fp:
+        fp.writelines('{} {}\n'.format(a, FS_CLASSES[c])
+                      for a, (_, _, _, c) in zip(ids, actions))
+    train = [a for a, (v, _, _, _) in zip(ids, actions)
+             if not v.startswith(test_prefix)]
+    with open(os.path.join(label_dir, 'val.ids.txt'), 'w') as fp:
+        fp.writelines(a + '\n' for i, a in enumerate(train) if i % 5 == 4)
+    for trial in range(2):
+        order = list(rng.permutation(names[:num_train]))
+        with open(os.path.join(label_dir, 'train.localize.{}.txt'.format(
+                trial)), 'w') as fp:
+            fp.writelines(v + '\n' for v in order)
+    return emb_dir, os.path.dirname(label_dir), sports, len(actions)
 
 
 def _mocap_frame_nums(family, n):
@@ -1804,6 +1915,467 @@ def phase_teacher(card, train):
               'c2': c2}})
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # also governs Conv1d
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _heads_cli(emb_dir, algorithm, shots, trials, epochs, out_dir=None,
+               **kw):
+    """The recognize CLI on cuda with a sequence head, as a user runs it
+    (fused sweep by default): (accuracies, stats, seconds)."""
+    stats = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        accs = recognize_cli.main(
+            emb_dir=emb_dir, dataset='fs', out_dir=out_dir,
+            algorithm=algorithm, num_train_examples=shots, norm=False, k=1,
+            hidden_dim=HEADS_H, attn=True, target_fps=25, num_epochs=epochs,
+            val_freq=HEADS_VAL_FREQ, n_trials=trials, no_test_flip=False,
+            retrieve=False, device='cuda', stats=stats, **kw)
+    for v in (a for t in accs.values() for a in t):
+        if not np.isfinite(v):
+            raise AssertionError('{}: non-finite accuracy'.format(algorithm))
+    return accs, stats, time.perf_counter() - t0
+
+
+def _head_flops(model, b, t, d):
+    """Multiply-add flops of one forward of a SeqClassifier's members on
+    (B, T, D) inputs: the RNN's projections and the dense layers."""
+    m = model.out.kernel.shape[0]
+    flops = 0
+    for layer in model.rnn.layers:
+        _, _, din, gh = layer.w_i.shape
+        flops += 2 * 2 * b * t * (din + layer.hidden_dim) * gh
+    flops += sum(2 * b * mod.kernel.shape[1] * mod.kernel.shape[2]
+                 for mod in model.modules()
+                 if isinstance(mod, tgru.MemberDense))
+    return m * flops
+
+
+def _step_timing(gen, members, rows, graphs=True):
+    """The train epoch of `members` heads (SeqClassifier gru + attention at
+    full width) on a pool of HEADS_T-bucket sequences on the card, each
+    member on `rows` rows, its RNN in CUDA graphs (as the trainers run it)
+    or eager: ms per step (CUDA events over an epoch), host ms per step,
+    TFLOP/s of fwd + bwd; then the same epoch under
+    set_sync_debug_mode('error')."""
+    n = 2 * HEADS_ROWS
+    lens = torch.randint(HEADS_T // 4, HEADS_T + 1, (n,), generator=gen)
+    x = torch.randn(n, HEADS_T, FS_EMB, generator=gen) * (
+        torch.arange(HEADS_T)[None, :, None] < lens[:, None, None])
+    y = torch.arange(n) % 6
+    pool = (x.cuda(), lens.cuda(), y.cuda())
+    member_rows = [torch.randperm(n, generator=gen)[:rows].numpy()
+                   for _ in range(members)]
+    model = tcls.make_model('gru', FS_EMB, 6, HEADS_H, num_members=members,
+                            use_attention=True).cuda()
+    ep = tcls._Epochs(model, torch.device('cuda'), pool, member_rows,
+                      HEADS_B, 500, 10, 1e-3, SEED)
+    steps = -(-rows // HEADS_B)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with (tgru.graphed_rnn(model, (members, HEADS_B, HEADS_T, FS_EMB))
+          if graphs else contextlib.nullcontext()):
+        ep.run_epoch()                    # first epoch: allocations
+        t0 = time.perf_counter()
+        ev[0].record()
+        sums = ep.device_epoch()
+        ev[1].record()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / steps
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            sums2 = ep.device_epoch()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    losses = torch.cat([sums[0], sums2[0]]).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError('head step losses {}'.format(losses))
+    flops = 3 * _head_flops(model, HEADS_B, HEADS_T, FS_EMB)
+    return {'members': members, 'rows': rows, 'cuda_graphs': graphs,
+            'steps_per_epoch': steps,
+            'device_ms_per_step': ms, 'host_ms_per_step': host_ms,
+            'gflop_per_step': flops / 1e9,
+            'f32_bound_ms': flops / F32_FLOPS_PER_S * 1e3,
+            'tflops_per_s': flops / ms / 1e9, 'no_host_sync_epoch': True}
+
+
+def _birnn_vs_cudnn(gen):
+    """BiRNN (depth 2, gru) forward and forward + backward at B = 50,
+    T = 128, H = 128 beside cuDNN's nn.GRU over pack_padded_sequence with
+    the same weights (the yardstick), and the two held to each other."""
+    model = tcls.make_model('gru', FS_EMB, 6, HEADS_H).cuda()
+    rnn = model.rnn
+    gru = torch.nn.GRU(FS_EMB, HEADS_H, num_layers=2, bidirectional=True,
+                       batch_first=True).cuda()
+    with torch.no_grad():
+        for li, layer in enumerate(rnn.layers):
+            for d, sfx in enumerate(('', '_reverse')):
+                for name, t in (('weight_ih', layer.w_i[0, d].T),
+                                ('weight_hh', layer.w_h[0, d].T),
+                                ('bias_ih', layer.b_i[0, d]),
+                                ('bias_hh', layer.b_h[0, d])):
+                    getattr(gru, '{}_l{}{}'.format(name, li, sfx)).copy_(t)
+    lens = torch.randint(HEADS_T // 4, HEADS_T + 1, (HEADS_B,),
+                         generator=gen)
+    lens[0] = HEADS_T
+    x = (torch.randn(HEADS_B, HEADS_T, FS_EMB, generator=gen)
+         * (torch.arange(HEADS_T)[None, :, None] < lens[:, None, None]))
+    xd, ld = x.cuda()[None], lens.cuda()[None]
+
+    def ours():
+        out, last = rnn(xd, ld)
+        return out[0], last[0]
+
+    def cudnn():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            xd[0], lens, batch_first=True, enforce_sorted=False)
+        out, h = gru(packed)
+        out = torch.nn.utils.rnn.pad_packed_sequence(
+            out, batch_first=True, total_length=HEADS_T)[0]
+        return out, h
+
+    with _no_tf32(), torch.no_grad():
+        a, b = ours(), cudnn()
+        err = max(float((a[0] - b[0]).abs().max()),
+                  float((a[1] - b[1]).abs().max()))
+    if err > 1e-4:
+        raise AssertionError('BiRNN and cuDNN GRU differ by {}'.format(err))
+
+    def fwd_bwd(fn):
+        def run():
+            out, last = fn()
+            (out.sum() + last.sum()).backward()
+        return run
+
+    with _no_tf32():  # float32 both: cuDNN would take TF32 otherwise
+        with torch.no_grad():
+            times = {'ours_fwd_ms': cuda_ms(ours, iters=10),
+                     'cudnn_fwd_ms': cuda_ms(cudnn, iters=10)}
+        times['ours_fwd_bwd_ms'] = cuda_ms(fwd_bwd(ours), iters=10)
+        times['cudnn_fwd_bwd_ms'] = cuda_ms(fwd_bwd(cudnn), iters=10)
+    flops = 2 * 2 * HEADS_B * HEADS_T * 3 * HEADS_H * (
+        FS_EMB + HEADS_H + 2 * HEADS_H + HEADS_H)
+    times.update(max_abs_diff=err, gflop_fwd=flops / 1e9,
+                 f32_bound_fwd_ms=flops / F32_FLOPS_PER_S * 1e3,
+                 tflops_per_s_fwd_bwd=3 * flops / times['ours_fwd_bwd_ms']
+                 / 1e9)
+    return times
+
+
+def _pool(rng, n, d=FS_EMB, classes=6):
+    protos = rng.normal(0, 1, (classes, d))
+    X = [(protos[i % classes] + rng.normal(0, .5, (int(rng.integers(
+        20, 61)), d))).astype(np.float32) for i in range(n)]
+    return X, np.arange(n) % classes
+
+
+def _fused_vs_sequential(rng):
+    """HEADS_CHECK members of the fused sweep on the card against
+    sequential trainers on the card, in float64 (held to HEADS_RTOL /
+    HEADS_ATOL) and in float32 with TF32 off, the CLI's dtype (held to
+    HEADS_RTOL / HEADS_F32_ATOL: cuBLAS sums a batch of M products in
+    another order than one, and AdamW turns a gradient's last bits into a
+    step's, so float32 runs drift apart by a few ulps a step)."""
+    X, y = _pool(rng, 96)
+    Xv, yv = _pool(rng, 24)
+    rows = [np.arange(96), np.arange(60), np.arange(24, 96)]
+    kw = dict(hidden_dim=HEADS_H, batch_size=HEADS_B,
+              num_epochs=HEADS_CHECK['epochs'], min_epochs=0, val_freq=1,
+              X_val=Xv, y_val=yv, use_attention=True, device='cuda',
+              bucket_floor=max(map(len, X + Xv)))
+    out = {'members': len(rows), 'epochs': HEADS_CHECK['epochs'],
+           'rtol': HEADS_RTOL, 'atol': HEADS_ATOL}
+    with _no_tf32():
+        for dtype in (torch.float64, torch.float32):
+            fused = FusedSweepTrainer('gru', X, y, rows, dtype=dtype, **kw)
+            err = 0.
+            for m, r in enumerate(rows):
+                seq = _flat(tcls.SeqModelTrainer(
+                    'gru', [X[i] for i in r], y[r], dtype=dtype,
+                    **kw).variables())
+                got = _flat(dict(zip(('params', 'batch_stats'),
+                                     fused.member(m))))
+                atol = HEADS_ATOL if dtype == torch.float64 else \
+                    HEADS_F32_ATOL
+                for k, want in seq.items():
+                    np.testing.assert_allclose(got[k], want, rtol=HEADS_RTOL,
+                                               atol=atol, err_msg=str(k))
+                    err = max(err, float(np.abs(got[k] - want).max()))
+            out['max_abs_diff_' + str(dtype).split('.')[1]] = err
+    out['f32_atol'] = HEADS_F32_ATOL
+    return out
+
+
+def _ensemble_fused_vs_sequential(rng):
+    """The detect CLI's `--sequential_ensemble` against its fused
+    default on the card (TF32 off): DETECT_MEMBERS KFold members of
+    EnsembleProposal at full width (hidden HEADS_H, FS_EMB-d frames),
+    trained one by one and as one batch, each RNN in CUDA graphs as the
+    trainers run it; weights and per-frame scores held in float64 to
+    HEADS_RTOL / HEADS_ATOL, scores in float32 to HEADS_RTOL /
+    HEADS_F32_ATOL."""
+    X, y = [], []
+    for _ in range(8):
+        x = rng.normal(0, 0.3, (300, FS_EMB)).astype(np.float32)
+        vy = np.zeros(300, np.int32)
+        for start in range(30, 260, 70):
+            x[start:start + 20] += 1.0
+            vy[start:start + 20] = 1
+        X.append(x)
+        y.append(vy)
+    kw = dict(hidden_dim=HEADS_H, ensemble_size=DETECT_MEMBERS, seed=3,
+              batch_size=16, num_epochs=3, min_epochs=1, seq_len=64,
+              samples_per_epoch=64, device='cuda')
+    out = {'members': DETECT_MEMBERS, 'f32_atol': HEADS_F32_ATOL}
+    with _no_tf32():
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).split('.')[1]
+            fused = tprop.EnsembleProposal('gru', X, y, fused=True,
+                                           dtype=dtype, **kw)
+            seq = tprop.EnsembleProposal('gru', X, y, fused=False,
+                                         dtype=dtype, **kw)
+            a, b = fused.model.state_dict(), seq.model.state_dict()
+            if sorted(a) != sorted(b):
+                raise AssertionError('ensemble state keys differ')
+            atol = HEADS_ATOL if dtype == torch.float64 else HEADS_F32_ATOL
+            if dtype == torch.float64:
+                for k in a:
+                    np.testing.assert_allclose(
+                        a[k].cpu().numpy(), b[k].cpu().numpy(),
+                        rtol=HEADS_RTOL, atol=HEADS_ATOL, err_msg=k)
+            out['param_max_abs_diff_' + name] = max(
+                float((a[k] - b[k]).abs().max()) for k in a)
+            got, want = (e.predict_n(X[0], X[0][:, ::-1].copy())
+                         for e in (fused, seq))
+            np.testing.assert_allclose(got, want, rtol=HEADS_RTOL,
+                                       atol=atol)
+            out['score_max_abs_diff_' + name] = float(
+                np.abs(got - want).max())
+    return out
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _step_cuda_vs_cpu(gen):
+    """One train step (dropout 0, input batch norm on, a partial batch) on
+    the card against the same step on the CPU, TF32 off."""
+    cpu = tcls.make_model('gru', FS_EMB, 6, HEADS_H, use_attention=True,
+                          input_batchnorm=True, dropout=0.,
+                          input_dropout=0.)
+    card = copy.deepcopy(cpu).cuda()
+    lens = torch.randint(10, HEADS_T + 1, (1, HEADS_B), generator=gen)
+    x = torch.randn(1, HEADS_B, HEADS_T, FS_EMB, generator=gen) * (
+        torch.arange(HEADS_T)[None, None, :, None] < lens[..., None, None])
+    y = torch.arange(HEADS_B)[None] % 6
+    valid = torch.arange(HEADS_B)[None] < HEADS_B - 7
+    scalars = torch.tensor([[1e-3], [0.01], [1 - 0.9], [1 - 0.999], [1.]])
+    out = {}
+    with _no_tf32():
+        for name, model in (('cpu', cpu), ('cuda', card)):
+            dev = next(model.parameters()).device
+            loss, _ = tcls.train_step(
+                model, tcls.StackedAdamW(model.parameters()), x.to(dev),
+                lens.to(dev), y.to(dev), valid.to(dev), scalars.to(dev))
+            out[name] = (float(loss[0]), {k: v.cpu() for k, v in
+                                          model.state_dict().items()})
+    loss_rel = abs(out['cuda'][0] - out['cpu'][0]) / abs(out['cpu'][0])
+    param_err, stat_err = 0., 0.
+    for k, v in out['cpu'][1].items():
+        d = float((out['cuda'][1][k] - v).abs().max())
+        if 'running' in k:
+            stat_err = max(stat_err, d / max(float(v.abs().max()), 1e-6))
+        else:
+            param_err = max(param_err, d)
+    if loss_rel > HEADS_CPU_RTOL or stat_err > HEADS_CPU_RTOL or \
+            param_err > HEADS_CPU_PARAM_ATOL:
+        raise AssertionError('head step cuda vs cpu: loss {} stats {} '
+                             'params {}'.format(loss_rel, stat_err,
+                                                param_err))
+    return {'loss_rel_diff': loss_rel, 'stats_rel_diff': stat_err,
+            'param_max_abs_diff': param_err,
+            'param_atol': HEADS_CPU_PARAM_ATOL, 'lr': 1e-3}
+
+
+def _proposal_timing(gen):
+    """The proposal step at B = 100, T = 250 (1 and DETECT_MEMBERS
+    members; the RNN in CUDA graphs, as the trainer runs it, and the
+    ensemble's without) and the ensemble's per-video predict
+    (DETECT_FRAMES frames, orig + flip)."""
+    out = {}
+    for m, graphs in ((1, True), (DETECT_MEMBERS, True),
+                      (DETECT_MEMBERS, False)):
+        model = tprop.ProposalSeq('gru', FS_EMB, HEADS_H,
+                                  num_members=m).cuda()
+        opt = tcls.StackedAdamW(model.parameters())
+        x = torch.randn(m, PROPOSAL_B, PROPOSAL_T, FS_EMB,
+                        generator=gen).cuda()
+        y = (torch.rand(m, PROPOSAL_B, PROPOSAL_T, generator=gen)
+             < 0.3).long().cuda()
+        lengths = torch.full((m, PROPOSAL_B), PROPOSAL_T,
+                             device='cuda')
+        one = torch.ones(m, device='cuda')
+        live = one > 0
+        gens = [torch.Generator(device='cuda').manual_seed(i)
+                for i in range(m)]
+        set_dropout_draw(model.train(), tgru.member_dropout_draw(gens))
+        with (tgru.graphed_rnn(model, (m, PROPOSAL_B, PROPOSAL_T, FS_EMB))
+              if graphs else contextlib.nullcontext()):
+            ms = cuda_ms(lambda: tprop.proposal_step(
+                model, opt, x, lengths, y, 1e-3 * one, 0.01 * one,
+                torch.stack([0.1 * one, 1e-3 * one]), live), iters=5,
+                warmup=2)
+        set_dropout_draw(model, None)
+        flops = 3 * m * (
+            sum(2 * 2 * PROPOSAL_B * PROPOSAL_T * (
+                layer.w_i.shape[2] + layer.hidden_dim) * layer.w_i.shape[3]
+                for layer in model.rnn.layers)
+            + 2 * PROPOSAL_B * PROPOSAL_T * 2 * HEADS_H * (2 * HEADS_H + 2))
+        out['members_{}{}'.format(m, '' if graphs else '_eager')] = {
+            'device_ms_per_step': ms, 'gflop_per_step': flops / 1e9,
+            'f32_bound_ms': flops / F32_FLOPS_PER_S * 1e3,
+            'tflops_per_s': flops / ms / 1e9}
+    video = np.random.default_rng(SEED).normal(
+        size=(DETECT_FRAMES, FS_EMB)).astype(np.float32)
+    variants = [video, video[:, ::-1].copy()]
+    tprop.ensemble_scores(model, variants)
+    t0 = time.perf_counter()
+    scores = tprop.ensemble_scores(model, variants)
+    out['ensemble_predict_s_per_video'] = time.perf_counter() - t0
+    out['ensemble_predict_frames'] = DETECT_FRAMES
+    if scores.shape != (DETECT_MEMBERS, 2, DETECT_FRAMES) or \
+            not np.isfinite(scores).all():
+        raise AssertionError('ensemble scores {}'.format(scores.shape))
+    return out
+
+
+def _detect_cli(root, rng):
+    """tools/detect on fs_jump over a synthetic whole-video corpus (fused
+    ensemble of DETECT_MEMBERS, DETECT_EPOCHS epochs) in a subprocess with
+    VPD_SPORTS_DIR set; its AP table against random scores' table."""
+    emb_dir, action_dir, sports, n_actions = write_detect_corpus(
+        root, rng, frames=DETECT_FRAMES)
+    out = os.path.join(root, 'detect')
+    secs, _ = _train_cli(
+        ['fs_jump', '--emb_dir', emb_dir, '-o', out, '--action_dir',
+         action_dir, '-k', str(DETECT_MEMBERS), '--loc_epochs',
+         str(DETECT_EPOCHS)], dict(os.environ, VPD_SPORTS_DIR=sports),
+        'detect')
+    ap = np.load(os.path.join(out, 'ap_table.npy'))
+    # chance: the same evaluation over uniform random scores
+    labels = []
+    with open(os.path.join(action_dir, 'fs', 'all.txt')) as fp:
+        for line in fp:
+            video, start, end = line.split()[0].split(':')
+            labels.append(tdet.Label(video, 'action', int(start), int(end),
+                                     25.))
+    test = [l for l in labels if l.video.startswith(FS_TEST_PREFIXES)]
+    train = [l for l in labels if l not in test]
+    mean_len = np.mean([l.end_frame - l.start_frame for l in train])
+    thresholds = np.linspace(0.1, 0.9, 9)
+    chance = tdet.evaluate_proposals(
+        [(v, rng.random(DETECT_FRAMES)) for v in sorted({
+            l.video for l in test})],
+        tdet.get_video_intervals(test), thresholds,
+        0.67 * np.ceil(mean_len), 1.33 * np.ceil(mean_len))
+    if ap.shape != (9, 9) or not np.isfinite(ap).all() or \
+            ap.max() <= chance.max():
+        raise AssertionError('detect AP table max {} vs chance {}'.format(
+            ap.max(), chance.max()))
+    return {'actions': n_actions, 'frames_per_video': DETECT_FRAMES,
+            'members': DETECT_MEMBERS, 'epochs': DETECT_EPOCHS,
+            'seconds': secs, 'ap_max': float(ap.max()),
+            'ap_at_tiou_0.5_max': float(ap[:, 4].max()),
+            'chance_ap_max': float(chance.max())}
+
+
+def phase_heads(card):
+    """The learned heads on frozen embeddings (no hand kernel): the
+    recognize CLI with sequence heads on the recognize phase's fs corpus,
+    fused against sequential on the card (the sweep and the proposal
+    ensemble), a step on cuda against the CPU, no host sync inside an
+    epoch, timings, and the detect CLI."""
+    emb_dir = os.path.join(WORK, 'fs_embs')
+    if not os.path.isdir(emb_dir):
+        os.makedirs(emb_dir)
+        _write_fs_corpus(emb_dir, np.random.default_rng(SEED))
+    t0 = time.perf_counter()
+    runs = {}
+    runs['few_shot'] = _heads_cli(emb_dir, 'gru', FS_SHOTS, FS_TRIALS,
+                                  HEADS_EPOCHS)
+    out = os.path.join(WORK, 'heads_full')
+    runs['full'] = _heads_cli(emb_dir, 'gru', [-1], 1, HEADS_EPOCHS,
+                              out_dir=out)
+    full_acc = runs['full'][0][-1][0]
+    if full_acc < FS_ACC_BAR:
+        raise AssertionError('gru full-data accuracy {} < {}'.format(
+            full_acc, FS_ACC_BAR))
+    if not all(runs['few_shot'][1]['fused'].values()):
+        raise AssertionError('few-shot sizes not fused: {}'.format(
+            runs['few_shot'][1]['fused']))
+    csv_name = 'trial0_full_gru.test_pred.csv'
+    out_w = os.path.join(WORK, 'heads_w')
+    runs['load_weights'] = _heads_cli(
+        emb_dir, 'gru', [-1], 1, HEADS_EPOCHS, out_dir=out_w,
+        load_weights=os.path.join(out, 'trial0_full_gru.model.ckpt'))
+    with open(os.path.join(out, csv_name), 'rb') as a, \
+            open(os.path.join(out_w, csv_name), 'rb') as b:
+        if a.read() != b.read():
+            raise AssertionError('-w gives another test_pred.csv')
+    for alg in ('lstm', 'cnn'):
+        runs[alg] = _heads_cli(emb_dir, alg, [16], FS_TRIALS,
+                               HEADS_SHORT_EPOCHS)
+    cli_s = time.perf_counter() - t0
+
+    gen = torch.Generator().manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 5)
+    fused_check = _fused_vs_sequential(rng)
+    ensemble_check = _ensemble_fused_vs_sequential(rng)
+    cpu_check = _step_cuda_vs_cpu(gen)
+    steps = {'fused': _step_timing(gen, HEADS_FUSED_M, HEADS_ROWS),
+             'sequential': _step_timing(gen, 1, HEADS_ROWS),
+             'fused_eager': _step_timing(gen, HEADS_FUSED_M, HEADS_ROWS,
+                                         graphs=False)}
+    birnn = _birnn_vs_cudnn(gen)
+    proposal = _proposal_timing(gen)
+    detect = _detect_cli(os.path.join(WORK, 'detect'), rng)
+    emit({'phase': 'heads', 'card': card,
+          'recognize_cli': {
+              name: {'mean_accuracy': {ne: float(np.mean(a))
+                                       for ne, a in r[0].items()},
+                     'seconds': r[2],
+                     'train_seconds': r[1].get('train_seconds'),
+                     'predict_seconds': r[1].get('predict_seconds'),
+                     'fused': r[1].get('fused')}
+              for name, r in runs.items()},
+          'epochs': {'gru': HEADS_EPOCHS, 'lstm_cnn': HEADS_SHORT_EPOCHS,
+                     'val_freq': HEADS_VAL_FREQ},
+          'cli_seconds': cli_s, 'full_accuracy': full_acc,
+          'load_weights_same_csv': True,
+          'fused_vs_sequential': fused_check,
+          'ensemble_fused_vs_sequential': ensemble_check,
+          'step_cuda_vs_cpu': cpu_check,
+          'step': steps, 'birnn_vs_cudnn': birnn, 'proposal': proposal,
+          'detect_cli': detect})
+
+
 def main():
     phase_env()
     card = card_line()
@@ -1822,6 +2394,7 @@ def main():
         train = phase_train(card)
         phase_cache(card, train)
         phase_teacher(card, train)
+        phase_heads(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(card)

@@ -37,6 +37,15 @@ train step at dropout 0 on cuda against the same step on the CPU with TF32
 off (loss and BN running statistics at rtol 1e-5, parameters within 2.5 x
 lr), `normalize_2d_batch_torch` on cuda against the numpy normalizer
 (atol 1e-6), and no host sync inside a train step (dropout on, seeded).
+
+The heads on frozen embeddings (no hand kernel: batched cuBLAS products in
+an explicit time loop): a fused step of three recognition heads (input
+batch norm, attention, a partial batch, dropout 0, one member not live) on
+cuda against the CPU with TF32 off (losses and running statistics at rtol
+1e-5, parameters within 2.5 x lr, the member that is not live unchanged),
+no host sync inside a training epoch of the fused sweep (dropout on)
+nor inside a proposal step, and the RNN's CUDA graphs training the
+fused sweep to the same weights as eager launches.
 """
 
 import copy
@@ -59,8 +68,11 @@ from vpd_tpu_torch.ops import dtw_kernel as tdtw
 from vpd_tpu_torch.ops import preprocess as tpre
 from vpd_tpu_torch.geometry import coco as tcoco
 from vpd_tpu_torch.geometry.camera import random_project_offsets
-from vpd_tpu_torch.models.fc import FlaxDropout
+from vpd_tpu_torch.models.fc import FlaxDropout, set_dropout_draw
 from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
+from vpd_tpu_torch.models import gru as tgru
+from vpd_tpu_torch.train import classifier as tcls
+from vpd_tpu_torch.train import proposal as tprop
 from vpd_tpu_torch.train import vipe as tvipe
 from vpd_tpu_torch.train import vipe_loop as tvloop
 from vpd_tpu_torch.train import vpd as tvpd
@@ -713,3 +725,157 @@ def test_teacher_step_makes_no_host_sync(cuda_device):
     losses = torch.stack([m['loss_sum'] for m in metrics]).tolist()
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
     assert state.step == 8
+
+
+# ------------------------------------------- the heads on frozen embeddings
+
+def _head_batch(m, b=16, t=32, d=8, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, t + 1, (m, b), generator=gen)
+    x = torch.randn(m, b, t, d, generator=gen) * (
+        torch.arange(t)[None, None, :, None] < lens[..., None, None])
+    y = torch.randint(0, 3, (m, b), generator=gen)
+    valid = torch.arange(b)[None].expand(m, -1) < b - 5
+    return x, lens, y, valid
+
+
+@pytest.mark.cuda
+def test_head_train_step_matches_cpu(cuda_device):
+    lr = 1e-3
+    cpu = tcls.make_model('gru', 8, 3, 16, num_members=3, use_attention=True,
+                          input_batchnorm=True, dropout=0., input_dropout=0.)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    batch = _head_batch(3)
+    scalars = torch.tensor([[lr] * 3, [0.01] * 3, [0.1] * 3, [1e-3] * 3,
+                            [1., 0., 1.]])
+    before = {k: v.clone() for k, v in cpu.state_dict().items()}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for name, model in (('cpu', cpu), ('cuda', card)):
+            dev = next(model.parameters()).device
+            out[name] = tcls.train_step(
+                model, tcls.StackedAdamW(model.parameters()),
+                *[t.to(dev) for t in batch], scalars.to(dev))[0].cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    np.testing.assert_allclose(out['cuda'].numpy(), out['cpu'].numpy(),
+                               rtol=1e-5)
+    gpu_sd = card.state_dict()
+    for name, t in cpu.state_dict().items():
+        got = gpu_sd[name].cpu()
+        assert torch.equal(got[1], before[name][1]), name  # not live
+        if 'running' in name:
+            np.testing.assert_allclose(got.numpy(), t.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+        else:
+            # AdamW's first step moves a parameter by about lr
+            np.testing.assert_allclose(got.numpy(), t.numpy(),
+                                       atol=0.2 * lr, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_head_epoch_makes_no_host_sync(cuda_device):
+    """The fused sweep's epoch (3 members, dropout on): after a first
+    epoch, which makes the step's tensors, an epoch reads nothing back
+    until its metrics; so does a proposal step."""
+    x, lens, y, _ = _head_batch(1, b=64)
+    pool = (x[0].to(cuda_device), lens[0].to(cuda_device),
+            y[0].to(cuda_device))
+    model = tcls.make_model('gru', 8, 3, 16, num_members=3).to(cuda_device)
+    ep = tcls._Epochs(model, cuda_device, pool,
+                      [np.arange(64), np.arange(40), np.arange(20, 64)], 16,
+                      10, 2, 1e-3, 0)
+    ep.run_epoch()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        sums = ep.device_epoch()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert np.isfinite(sums.cpu().numpy()).all()
+    assert list(ep.count) == [8, 6, 6]
+
+    prop = tprop.ProposalSeq('gru', 8, 16, num_members=2).to(cuda_device)
+    opt = tcls.StackedAdamW(prop.parameters())
+    gens = [torch.Generator(device=cuda_device).manual_seed(i)
+            for i in range(2)]
+    set_dropout_draw(prop.train(), tgru.member_dropout_draw(gens))
+    xb = torch.randn(2, 8, 32, 8, device=cuda_device)
+    yb = (torch.rand(2, 8, 32, device=cuda_device) < 0.3).long()
+    lengths = torch.full((2, 8), 32, device=cuda_device)
+    one = torch.ones(2, device=cuda_device)
+    step = lambda: tprop.proposal_step(  # noqa: E731
+        prop, opt, xb, lengths, yb, 1e-3 * one, 0.01 * one,
+        torch.stack([0.1 * one, 1e-3 * one]), one > 0)
+    step()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        losses = [step()[0] for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert np.isfinite(torch.stack(losses).cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_head_cuda_graphs_train_as_eager(cuda_device):
+    """Two epochs of a 3-member sweep (input batch norm, dropout on):
+    `train_members`, whose RNN runs in CUDA graphs, against the same
+    epochs run eager, from the same weights: the same arithmetic, so the
+    same weights up to float32 rounding. The model leaves training with
+    its RNN's own forward."""
+    x, lens, y, _ = _head_batch(1, b=64)
+    pool = (x[0].to(cuda_device), lens[0].to(cuda_device),
+            y[0].to(cuda_device))
+    rows = [np.arange(64), np.arange(40), np.arange(20, 64)]
+    base = tcls.make_model('gru', 8, 3, 16, num_members=3,
+                           input_batchnorm=True).to(cuda_device)
+    graphed, eager = copy.deepcopy(base), copy.deepcopy(base)
+    tcls.train_members(graphed, cuda_device, pool, rows, batch_size=16,
+                       num_epochs=2, min_epochs=0, wr_count=1)
+    assert 'forward' not in vars(graphed.rnn)
+    # train_members' two epochs without validation, as it runs them
+    ep = tcls._Epochs(eager, cuda_device, pool, rows, 16, 2, 1, 1e-3, 0)
+    ep.run_epoch()
+    ep.run_epoch()
+    states = [{k: v.cpu() for k, v in model.state_dict().items()}
+              for model in (graphed, eager)]
+    for k, v in states[1].items():
+        np.testing.assert_allclose(states[0][k].numpy(), v.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_sequential_ensemble_matches_fused_on_card(cuda_device):
+    """`--sequential_ensemble -k 3` on the card: its three KFold members,
+    each trained alone with its RNN in CUDA graphs, stacked into one
+    model, give the fused ensemble's weights and scores (float64, TF32
+    off; tests/test_fused_sweep.py's bar)."""
+    rng = np.random.default_rng(11)
+    X, y = [], []
+    for _ in range(6):
+        x = rng.normal(0, 0.3, (120, 6)).astype(np.float32)
+        vy = np.zeros(120, np.int32)
+        for start in range(20, 100, 50):
+            x[start:start + 10] += 2.0
+            vy[start:start + 10] = 1
+        X.append(x)
+        y.append(vy)
+    kw = dict(hidden_dim=8, ensemble_size=3, splits=3, seed=5,
+              batch_size=8, num_epochs=3, min_epochs=1, seq_len=32,
+              samples_per_epoch=32, device=cuda_device, dtype=torch.float64)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        seq = tprop.EnsembleProposal('gru', X, y, fused=False, **kw)
+        fused = tprop.EnsembleProposal('gru', X, y, fused=True, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    a, b = fused.model.state_dict(), seq.model.state_dict()
+    assert sorted(a) == sorted(b)
+    for k in a:
+        np.testing.assert_allclose(a[k].cpu().numpy(), b[k].cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)
+    np.testing.assert_allclose(fused.predict_n(X[0], X[1]),
+                               seq.predict_n(X[0], X[1]), rtol=2e-4,
+                               atol=2e-5)

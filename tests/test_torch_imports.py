@@ -46,7 +46,10 @@ def test_port_and_chip_smoke_import_no_jax():
                  'data.parallel_batcher', 'models.torch_compat',
                  'tools.pack_crops', 'geometry.coco', 'geometry.render',
                  'data.vipe_sampler', 'train.vipe', 'train.vipe_loop',
-                 'infer.apply_vipe', 'tools.train_vipe', 'tools.apply_vipe'):
+                 'infer.apply_vipe', 'tools.train_vipe', 'tools.apply_vipe',
+                 'core.schedule', 'models.gru', 'train.classifier',
+                 'train.fused_sweep', 'train.proposal', 'tasks.detect',
+                 'tools.detect'):
         assert 'vpd_tpu_torch.' + name in out['modules']
     assert out['loaded'] == []
 

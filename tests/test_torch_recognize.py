@@ -213,20 +213,28 @@ def test_run_action_retrieval_matches_vpd_tpu():
 
 
 def test_sequence_heads_raise():
-    with pytest.raises(NotImplementedError, match='A6'):
-        trec.SeqModel('gru', {}, {}, 8)
-    with pytest.raises(NotImplementedError, match='A6'):
+    """The sequence heads are ported; what they refuse: the mesh (ROADMAP
+    A11), k != 1 and an unknown algorithm. The fused sweep changes nothing
+    for DTW, as in vpd_tpu."""
+    for algorithm in ('lstm', 'dtw'):
+        with pytest.raises(NotImplementedError, match='A11'):
+            trec.run_action_recognition(
+                CATS, {}, {}, None, None, {}, {}, None, algorithm, 1, [-1],
+                '', 8, False, 1, 1, 1, False, mesh=object(), device='cpu')
+    with pytest.raises(ValueError, match='k = 3'):
         trec.run_action_recognition(CATS, {}, {}, None, None, {}, {}, None,
-                                    'lstm', 1, [-1], '', 8, False, 1, 1, 1,
+                                    'gru', 3, [-1], '', 8, False, 1, 1, 1,
                                     False, device='cpu')
-    with pytest.raises(NotImplementedError, match='A6'):
+    with pytest.raises(ValueError, match='unknown algorithm'):
         trec.run_action_recognition(CATS, {}, {}, None, None, {}, {}, None,
-                                    'dtw', 1, [-1], '', 8, False, 1, 1, 1,
-                                    False, fused_sweep=True, device='cpu')
-    with pytest.raises(NotImplementedError, match='A11'):
-        trec.run_action_recognition(CATS, {}, {}, None, None, {}, {}, None,
-                                    'dtw', 1, [-1], '', 8, False, 1, 1, 1,
-                                    False, mesh=object(), device='cpu')
+                                    'svm', 1, [-1], '', 8, False, 1, 1, 1,
+                                    False, device='cpu')
+    train_embs, train_labels, test_embs, test_labels, _ = corpus(6)
+    args = (CATS, train_embs, train_labels, None, None, test_embs,
+            test_labels, None, 'dtw', 1, [-1], '', 8, False, 1, 1, 1, False)
+    assert trec.run_action_recognition(*args, fused_sweep=True,
+                                       device='cpu', **QUIET) == \
+        trec.run_action_recognition(*args, device='cpu', **QUIET)
 
 
 def test_device_none_needs_a_gpu():
@@ -352,6 +360,8 @@ def test_cli_matches_vpd_tpu(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_sequence_head_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match='A6'):
+    """A sequence head votes with k = 1: the CLI refuses another k before
+    it loads any data."""
+    with pytest.raises(ValueError, match='k = 2'):
         tcli.main(**cli_kwargs(str(tmp_path), None, None, algorithm='gru',
-                               device='cpu'))
+                               k=2, device='cpu'))

@@ -265,6 +265,16 @@ def _sorted_tree(tree):
     return tree
 
 
+def variables_to_bytes(variables):
+    """A flax `{'params', 'batch_stats'}` tree as vpd_tpu's head trainers
+    save it (`flax.serialization.to_bytes` of a dict built in that
+    order): 'params' first, the keys below sorted, as JAX's tree
+    flattening leaves them."""
+    return packb({'params': _sorted_tree(variables['params']),
+                  'batch_stats': _sorted_tree(
+                      variables.get('batch_stats') or {})})
+
+
 def component_path(save_dir, name, component):
     return os.path.join(save_dir, '{}.{}.ckpt'.format(name, component))
 

@@ -21,6 +21,10 @@ batch_stats mean/var <-> running_mean/running_var; the multi-head kernel
 every flax leaf is used exactly once and every torch parameter and buffer
 (bar BN's `num_batches_tracked` counter) is filled.
 
+The heads on frozen embeddings (`models/gru.py`, and the proposal model)
+map one member of their stacked weights at a time:
+`load_seq_head_from_flax` / `seq_head_to_flax` and the `proposal` pair.
+
 `student_params_to_flax` / `student_params_from_flax` (and the `vipe_`
 pair for the teacher) map one tensor per parameter (AdamW's moments, say)
 the same way, to and from flax's params trees: `{'encoder': ...,
@@ -287,3 +291,149 @@ def vipe_params_to_flax(model, values):
 def vipe_params_from_flax(model, tree):
     """Inverse of `vipe_params_to_flax`."""
     return _params_from_flax(_vipe_parts(model), tree)
+
+
+# ------------------------------------------- heads on frozen embeddings
+#
+# SeqClassifier  [MaskedBatchNorm_0], BiRNN_0/Torch{GRU,LSTM}Cell_{2l+d}/
+#                {ir,iz,in,hr,hz,hn | ii,if,ig,io,hi,hf,hg,ho}, [Dense_0
+#                (attention)], BatchNorm_0, Dense_*, BatchNorm_1, Dense_*
+# CNNClassifier  Conv_i (kernel sizes in order, each followed by its
+#                second conv at depth 2), Dense_0, Dense_1
+# ProposalSeq    BiRNN_0, BatchNorm_0, Dense_0, BatchNorm_1, Dense_1
+#
+# The port's modules hold M members along a leading axis; each leaf below
+# is a view of one member's tensor in flax's layout (a gate's column block
+# of the fused projections, a conv weight (H, D, k) seen as (k, D, H)).
+
+def _whole(t):
+    return t
+
+
+def _head_dense(tname, fname):
+    return [('params', (fname, 'kernel'), tname + '.kernel', _whole),
+            ('params', (fname, 'bias'), tname + '.bias', _whole)]
+
+
+def _head_bn(tname, fname):
+    return [('params', (fname, 'scale'), tname + '.weight', _whole),
+            ('params', (fname, 'bias'), tname + '.bias', _whole),
+            ('batch_stats', (fname, 'mean'), tname + '.running_mean', _whole),
+            ('batch_stats', (fname, 'var'), tname + '.running_var', _whole)]
+
+
+def _head_birnn(rnn, prefix):
+    from .gru import GATES
+
+    cell = {'gru': 'TorchGRUCell', 'lstm': 'TorchLSTMCell'}[rnn.cell_type]
+    h = rnn.hidden_dim
+    out = []
+    for li in range(len(rnn.layers)):
+        tname = '{}.layers.{}.'.format(prefix, li)
+        for d in range(2):
+            fcell = ('BiRNN_0', '{}_{}'.format(cell, 2 * li + d))
+            for gi, names in enumerate(GATES[rnn.cell_type]):
+                cols = slice(gi * h, (gi + 1) * h)
+                for fname, src in zip(names, ('i', 'h')):
+                    out += [('params', fcell + (fname, 'kernel'),
+                             tname + 'w_' + src,
+                             lambda t, d=d, c=cols: t[d, :, c]),
+                            ('params', fcell + (fname, 'bias'),
+                             tname + 'b_' + src,
+                             lambda t, d=d, c=cols: t[d, c])]
+    return out
+
+
+def _head_leaves(model):
+    """(collection, flax path, torch tensor name, member view -> flax
+    view) of every leaf of a SeqClassifier, CNNClassifier or ProposalSeq."""
+    from .gru import CNNClassifier, SeqClassifier
+
+    if isinstance(model, CNNClassifier):
+        leaves = []
+        convs = [('convs.{}.{}'.format(i, j), conv)
+                 for i, branch in enumerate(model.convs)
+                 for j, conv in enumerate(branch)]
+        for k, (tname, _) in enumerate(convs):
+            fname = 'Conv_{}'.format(k)
+            leaves += [('params', (fname, 'kernel'), tname + '.weight',
+                        lambda t: t.permute(2, 1, 0)),
+                       ('params', (fname, 'bias'), tname + '.bias', _whole)]
+        return leaves + _head_dense('dense', 'Dense_0') + _head_dense(
+            'out', 'Dense_1')
+    leaves = _head_birnn(model.rnn, 'rnn')
+    if isinstance(model, SeqClassifier):
+        if model.input_bn is not None:
+            leaves += _head_bn('input_bn', 'MaskedBatchNorm_0')
+        dense = ['dense', 'out']
+        if model.use_attention:
+            dense.insert(0, 'attn')
+    else:  # ProposalSeq
+        dense = ['dense', 'out']
+    leaves += _head_bn('bn0', 'BatchNorm_0') + _head_bn('bn1', 'BatchNorm_1')
+    for i, tname in enumerate(dense):
+        leaves += _head_dense(tname, 'Dense_{}'.format(i))
+    return leaves
+
+
+def _check_covered(model, leaves):
+    names = {n for _, _, n, _ in leaves}
+    tensors = {n for n, _ in model.state_dict().items()}
+    if names != tensors:
+        raise ValueError('torch tensors without a flax leaf: {}'.format(
+            sorted(tensors - names)))
+
+
+@torch.no_grad()
+def load_seq_head_from_flax(model, variables, member=None):
+    """Fill member `member` (None: every member) of a recognition head
+    (`models.gru.SeqClassifier` / `CNNClassifier`) from the flax
+    `{'params', 'batch_stats'}` that vpd_tpu's `SeqModelTrainer.save`
+    writes. Every flax leaf must be used and every tensor filled."""
+    leaves = _head_leaves(model)
+    _check_covered(model, leaves)
+    flat = {(coll,) + path: arr for coll in ('params', 'batch_stats')
+            for path, arr in _flatten(variables.get(coll) or {}).items()}
+    state = model.state_dict()
+    members = (range(next(iter(state.values())).shape[0]) if member is None
+               else [member])
+    for coll, fpath, tname, view in leaves:
+        key = (coll,) + fpath
+        if key not in flat:
+            raise KeyError('flax leaf {} missing (for {})'.format(
+                '/'.join(key), tname))
+        src = torch.from_numpy(np.array(flat.pop(key)))
+        for m in members:
+            dst = view(state[tname][m])
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError('{}: flax {} vs torch {}'.format(
+                    '/'.join(key), tuple(src.shape), tuple(dst.shape)))
+            dst.copy_(src)
+    if flat:
+        raise ValueError('unused flax leaves: {}'.format(
+            sorted('/'.join(k) for k in flat)))
+    return model
+
+
+@torch.no_grad()
+def seq_head_to_flax(model, member=0):
+    """Member `member` of a recognition head -> flax `{'params',
+    'batch_stats'}` of arrays in the model's dtype (batch_stats empty for
+    the CNN), the tree vpd_tpu's `SeqModelTrainer.save` writes."""
+    leaves = _head_leaves(model)
+    _check_covered(model, leaves)
+    state = model.state_dict()
+    out = {'params': {}, 'batch_stats': {}}
+    for coll, fpath, tname, view in leaves:
+        node = out[coll]
+        for name in fpath[:-1]:
+            node = node.setdefault(name, {})
+        node[fpath[-1]] = np.ascontiguousarray(
+            view(state[tname][member]).cpu().numpy())
+    return out
+
+
+# the proposal model (`train/proposal.ProposalSeq`, what vpd_tpu's
+# proposal trainers hold) maps the same way
+load_proposal_from_flax = load_seq_head_from_flax
+proposal_to_flax = seq_head_to_flax

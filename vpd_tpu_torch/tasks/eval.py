@@ -13,6 +13,8 @@ Copied from `vpd_tpu/tasks/eval.py` (this package
 imports nothing of `vpd_tpu`).
 """
 
+import warnings
+
 import numpy as np
 
 
@@ -80,11 +82,19 @@ def compute_ap(pc, rc):
 
 
 def save_confusion_matrix(truth, pred, out_file, norm=None):
-    """Render a confusion-matrix PDF (`util/eval.py:5-23`)."""
-    import matplotlib
+    """Render a confusion-matrix PDF (`util/eval.py:5-23`). Where
+    matplotlib or scikit-learn is not installed (a GPU host may have
+    neither) it warns, naming the package, and writes no PDF; the CSVs
+    beside it hold the same predictions."""
+    try:
+        import matplotlib
+        from sklearn.metrics import ConfusionMatrixDisplay, confusion_matrix
+    except ImportError as e:
+        warnings.warn('{} is not installed: {} not written'.format(
+            e.name, out_file))
+        return
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
-    from sklearn.metrics import ConfusionMatrixDisplay, confusion_matrix
 
     label_names = sorted(set(truth) | set(pred))
     index = {name: i for i, name in enumerate(label_names)}

@@ -1,17 +1,21 @@
 """Few-shot action recognition and retrieval on frozen embeddings.
 
-Counterpart of `vpd_tpu/tasks/recognize.py`, DTW only. Parity with
-reference `recognize.py:125-199, 453-649`: KnnModel (DTW symmetricP2
-with symmetric2 fallback, most-common-class fallback), few-shot trials
-over premade id files, accuracy / confusion / CSV outputs, and DTW
-retrieval with hit@k / prec@k.
+Counterpart of `vpd_tpu/tasks/recognize.py`. Parity with reference
+`recognize.py:68-199, 453-649`: SeqModel (GRU/LSTM/CNN heads, flip rows
+become extra training sequences, flip-ensemble prediction), KnnModel (DTW
+symmetricP2 with symmetric2 fallback, most-common-class fallback),
+few-shot trials over premade id files, accuracy / confusion / CSV
+outputs, and DTW retrieval with hit@k / prec@k.
 
 In the port the DTW kNN and retrieval always run as one batched sweep on
 the chosen device (kernel B2 on CUDA, its plain twin on the CPU): the
 test x train matrix is computed once and every trial selects its
 columns. The host `KnnModel` stays for parity tests. The sequence heads
-(lstm / gru / cnn), the fused trial sweep and the device mesh are not
-ported yet (ROADMAP A6, A11) and raise NotImplementedError.
+train on the device (`train/classifier.py`); with `fused_sweep` every
+trial of a few-shot size trains as one member of one batched model
+(`train/fused_sweep.py`), and a head scores all test actions in one
+forward per length bucket. The device mesh is not ported (ROADMAP A11)
+and raises NotImplementedError.
 """
 
 import csv
@@ -21,6 +25,7 @@ from collections import Counter, defaultdict
 
 import numpy as np
 
+from ..train.classifier import SeqModelTrainer
 from .eval import save_confusion_matrix
 from .neighbors import KNearestNeighbors, batch_distances, make_dtw_fns
 
@@ -58,10 +63,54 @@ def _expand_flip_rows(all_embs, labels, class_index=None):
 
 
 class SeqModel:
-    """Sequence-head recognizer (`recognize.py:68-122`): not ported."""
+    """Sequence-head recognizer (`recognize.py:68-122`)."""
 
-    def __init__(self, arch_type, *args, **kwargs):
-        raise not_ported('the {} sequence head'.format(arch_type), 'A6')
+    def __init__(self, arch_type, train_embs, train_labels, hidden_dim,
+                 val_embs=None, val_labels=None, **kwargs):
+        classes = Counter(train_labels[seq] for seq in train_embs)
+        self.classes = sorted(classes.keys())
+        self.top_class = classes.most_common()[0][0]
+
+        cidx = self.classes.index
+        X, y, _ = _expand_flip_rows(train_embs, train_labels, cidx)
+        X_val, y_val = (None, None)
+        if val_embs:
+            X_val, y_val, _ = _expand_flip_rows(val_embs, val_labels, cidx)
+
+        self.model = SeqModelTrainer(
+            arch_type, X, y, hidden_dim, X_val=X_val, y_val=y_val, **kwargs)
+
+    def predict_actions(self, embs, ensemble=True):
+        """{action: (class, None)} for a dict of (T, [k,] D) embeddings;
+        (T, k, D) flip columns are ensemble variants (only the first
+        without `ensemble`), an action without embeddings gets the most
+        common class. Every variant of every action is scored in one
+        batched forward per length bucket."""
+        seqs, owner = [], []
+        for action, x in embs.items():
+            if x is None:
+                continue
+            variants = ([x[:, j, :] for j in range(x.shape[1])]
+                        if x.ndim == 3 else [x])
+            if not ensemble:
+                variants = variants[:1]
+            seqs.extend(variants)
+            owner.extend([action] * len(variants))
+        probs = self.model.predict_probs(seqs) if seqs else None
+        out = {action: (self.top_class, None) for action in embs}
+        by_action = defaultdict(list)
+        for i, action in enumerate(owner):
+            by_action[action].append(i)
+        for action, rows in by_action.items():
+            out[action] = (self.classes[int(np.argmax(
+                probs[rows].mean(0)))], None)
+        return out
+
+    def predict(self, x, ensemble=True):
+        return self.predict_actions({None: x}, ensemble)[None]
+
+    def save_model(self, out_path):
+        self.model.save(out_path)
 
 
 class KnnModel:
@@ -223,6 +272,40 @@ def sample_embeddings(embs, labels, n, keep_ratio=False, seed=None):
     return {s: embs[s] for s in keep}
 
 
+def _train_fused_sweep(subsets, train_embs, train_labels, val_embs,
+                       val_labels, algorithm, trainer_kwargs, log):
+    """Train every trial of one few-shot size as the members of one model
+    (`train/fused_sweep.py`). Returns per-trial (params, batch_stats)
+    presets, or None when the subsets are not fusable: a trial that does
+    not see every class would get a smaller classifier head in the
+    sequential path, so such sizes fall back to per-trial training
+    (identical results, just slower)."""
+    from ..train.fused_sweep import FusedSweepTrainer
+
+    classes = sorted(set(train_labels[s] for s in train_embs))
+    for sub in subsets:
+        if sorted(set(train_labels[s] for s in sub)) != classes:
+            return None
+    cidx = classes.index
+    X_pool, y_pool, row_seq = _expand_flip_rows(train_embs, train_labels,
+                                                cidx)
+    member_rows = [[r for r, s in enumerate(row_seq) if s in sub]
+                   for sub in subsets]
+    if any(not rows for rows in member_rows):
+        return None
+    X_val = y_val = None
+    if val_embs:
+        X_val, y_val, _ = _expand_flip_rows(val_embs, val_labels, cidx)
+    try:
+        fused = FusedSweepTrainer(
+            algorithm, X_pool, y_pool, member_rows, X_val=X_val,
+            y_val=y_val, log=log, **trainer_kwargs)
+    except ValueError as exc:
+        log('fused sweep fallback to sequential trials: {}'.format(exc))
+        return None
+    return [fused.member(i) for i in range(len(subsets))]
+
+
 def run_action_recognition(
         categories, train_embs, train_labels, val_embs, val_labels,
         test_embs, test_labels, out_dir, algorithm, k, num_train_examples,
@@ -230,49 +313,89 @@ def run_action_recognition(
         n_trials, no_test_flip, load_action_ids_fn=None, load_weights=None,
         device_knn=False, device_max_len=128, fused_sweep=False, mesh=None,
         log=print, device=None, stats=None):
-    """Few-shot evaluation protocol (`recognize.py:453-577`), DTW kNN.
+    """Few-shot evaluation protocol (`recognize.py:453-577`).
 
-    The full test x train DTW matrix is computed once on `device` (None
-    means CUDA; sequences cut to device_max_len) and reused across every
-    few-shot size and trial. `device_knn` is accepted for parity with
-    vpd_tpu: the sweep is always on. The sequence heads, the fused trial
-    sweep and the mesh raise NotImplementedError. The sequence-head
-    arguments
-    (hidden_dim, attn, num_epochs, val_freq, val_embs, load_weights) are
-    unused until those heads are ported. When `stats` is a dict it
-    receives the index (`index`), the seconds spent building it
+    DTW kNN: the full test x train DTW matrix is computed once on `device`
+    (None means CUDA; sequences cut to device_max_len) and reused across
+    every few-shot size and trial; `device_knn` is accepted for parity
+    with vpd_tpu: the sweep is always on. Sequence heads (lstm / gru /
+    cnn) train on `device`, one per trial, or with `fused_sweep` all
+    trials of a few-shot size as one batched model (sizes that are not
+    fusable fall back to sequential trials); `load_weights` loads one
+    saved head for every trial instead of training. The mesh raises
+    NotImplementedError (ROADMAP A11). When `stats` is a dict it receives,
+    for DTW, the index (`index`), the seconds spent building it
     (`index_seconds`) and the host voting seconds per few-shot size
-    (`vote_seconds`). Returns {ne: [trial accs]}.
+    (`vote_seconds`); for a sequence head, the training seconds
+    (`train_seconds`), whether the fused sweep ran (`fused`) and the
+    prediction seconds (`predict_seconds`) per few-shot size. Returns
+    {ne: [trial accs]}.
     """
-    del device_knn, hidden_dim, attn, num_epochs, val_freq, load_weights
-    if algorithm in SEQ_MODELS:
-        raise not_ported('the {} sequence head'.format(algorithm), 'A6')
-    if algorithm not in KNN_MODELS:
+    del device_knn
+    if algorithm not in KNN_MODELS + SEQ_MODELS:
         raise ValueError('unknown algorithm {!r}'.format(algorithm))
-    if fused_sweep:
-        raise not_ported('the fused trial sweep', 'A6')
     if mesh is not None:
         raise not_ported('the device mesh', 'A11')
+    from .. import resolve_device
     from ..datasets.load import load_action_ids
     if load_action_ids_fn is None:
         load_action_ids_fn = load_action_ids
+    device = resolve_device(device)
+    seq_model = algorithm in SEQ_MODELS
+    if seq_model and k != 1:
+        raise ValueError('sequence heads vote with k = 1, got k = {}'
+                         .format(k))
 
-    t0 = time.perf_counter()
-    knn_index = DeviceKnnIndex(train_embs, test_embs, train_labels,
-                               max_len=device_max_len, device=device,
-                               log=log)
-    if stats is not None:
-        stats.update(index=knn_index,
-                     index_seconds=time.perf_counter() - t0,
-                     vote_seconds={})
+    knn_index = None
+    if not seq_model:
+        t0 = time.perf_counter()
+        knn_index = DeviceKnnIndex(train_embs, test_embs, train_labels,
+                                   max_len=device_max_len, device=device,
+                                   log=log)
+        if stats is not None:
+            stats.update(index=knn_index,
+                         index_seconds=time.perf_counter() - t0,
+                         vote_seconds={})
+    elif stats is not None:
+        stats.update(train_seconds={}, fused={}, predict_seconds={})
 
-    def run_trial(trial, embs, ne):
-        model = DeviceKnnModel(knn_index, set(embs), k)
+    if seq_model:
+        seq_kwargs = {'hidden_dim': hidden_dim, 'num_epochs': num_epochs,
+                      'val_freq': val_freq,
+                      'early_term_val_num_epochs': num_epochs // 3,
+                      'device': device}
+        if algorithm in ('gru', 'lstm'):
+            seq_kwargs['use_attention'] = attn
+        seqs = [v for v in train_embs.values() if v is not None]
+        seqs += [v for v in (val_embs or {}).values() if v is not None]
+    if seq_model and seqs:
+        # every trial's trainer (and the fused sweep) pads to this one
+        # bucket, so fused and sequential trials train on the same shapes
+        seq_kwargs['bucket_floor'] = max(len(v) for v in seqs)
+
+    def build_model(embs, preset=None):
+        if not seq_model:
+            return DeviceKnnModel(knn_index, set(embs), k)
+        kwargs = dict(seq_kwargs)
+        if load_weights is not None:
+            kwargs['load_weights'] = load_weights
+        if preset is not None:
+            kwargs['preset'] = preset
+        return SeqModel(algorithm, embs, train_labels, val_embs=val_embs,
+                        val_labels=val_labels, **kwargs)
+
+    def run_trial(trial, embs, ne, preset=None):
+        t0 = time.perf_counter()
+        model = build_model(embs, preset)
+        t1 = time.perf_counter()
+        if seq_model:
+            preds = model.predict_actions(test_embs, not no_test_flip)
         results = []
         errors = 0
         for action_id in test_embs:
-            pred, neighbor = model.predict_action(action_id,
-                                                  not no_test_flip)
+            pred, neighbor = (preds[action_id] if seq_model else
+                              model.predict_action(action_id,
+                                                   not no_test_flip))
             actual = test_labels[action_id]
             if pred != actual:
                 errors += 1
@@ -282,6 +405,9 @@ def run_action_recognition(
                             pred, pred_name, neighbor))
         acc = 1 - errors / len(results)
         log('Trial {}: accuracy {:0.4f}'.format(trial, acc))
+        if stats is not None and seq_model:
+            stats['train_seconds'][ne] += t1 - t0
+            stats['predict_seconds'][ne] += time.perf_counter() - t1
 
         if out_dir is not None:
             os.makedirs(out_dir, exist_ok=True)
@@ -300,24 +426,43 @@ def run_action_recognition(
                     'sequence', 'actual', 'actual_name',
                     'pred (acc={})'.format(acc), 'pred_name', 'neighbor'])
                 writer.writerows(results)
+            if seq_model and load_weights is None:
+                # with pretrained weights the trial model is a copy of
+                # the input; don't re-serialize it (`recognize.py:511`)
+                model.save_model(os.path.join(
+                    out_dir, '{}.model.ckpt'.format(trial_str)))
         return acc
 
     accs = {}
     for ne in num_train_examples:
         t0 = time.perf_counter()
-        trial_accs = []
+        subsets = []
         for i in range(n_trials):
             if ne > 0:
                 ids = load_action_ids_fn(few_shot_template.format(ne, i))
-                subset = {a: b for a, b in train_embs.items() if a in ids}
+                subsets.append({a: b for a, b in train_embs.items()
+                                if a in ids})
             else:
-                subset = train_embs
-            trial_accs.append(run_trial(i, subset, ne))
+                subsets.append(train_embs)
+        presets = None
+        if (fused_sweep and seq_model and load_weights is None
+                and n_trials > 1):
+            presets = _train_fused_sweep(
+                subsets, train_embs, train_labels, val_embs, val_labels,
+                algorithm, seq_kwargs, log)
+        if stats is not None and seq_model:
+            stats['fused'][ne] = presets is not None
+            stats['train_seconds'][ne] = time.perf_counter() - t0
+            stats['predict_seconds'][ne] = 0.
+        trial_accs = []
+        for i in range(n_trials):
+            trial_accs.append(run_trial(
+                i, subsets[i], ne, preset=presets[i] if presets else None))
         log('{}-shot mean accuracy: {:0.3f} +/- {:0.3f}'.format(
             ne if ne > 0 else 'full',
             np.mean(trial_accs) * 100, np.std(trial_accs) * 100))
         accs[ne] = trial_accs
-        if stats is not None:
+        if stats is not None and not seq_model:
             stats['vote_seconds'][ne] = time.perf_counter() - t0
     return accs
 

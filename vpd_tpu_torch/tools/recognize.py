@@ -2,15 +2,19 @@
 """Action recognition / retrieval CLI (counterpart of
 `vpd_tpu/tools/recognize.py`; parity: reference `recognize.py`).
 
+    python -m vpd_tpu_torch.tools.recognize <emb_dir> -d fs
     python -m vpd_tpu_torch.tools.recognize <emb_dir> -d fs --algorithm dtw
     python -m vpd_tpu_torch.tools.recognize <emb_dir> -d fs --retrieve \\
         -ne 1 10 25 50
 
-DTW kNN and retrieval run as one batched sweep on `--device` (default
-cuda: kernel B2; cpu: its plain twin). `--device_knn` and
-`--device_retrieval` are accepted for flag parity; the sweep is always
-on. The sequence heads (lstm / gru / cnn) are not ported yet (ROADMAP
-A6) and raise NotImplementedError.
+Everything runs on `--device` (default cuda; cpu runs the same code on
+the CPU). The default head is a GRU (`--algorithm gru|lstm|cnn`, with
+`--attn`, `--hidden_dim`, `--num_epochs`, `-vf`): all trials of a
+few-shot size train as one batched model (the fused sweep) unless
+`--sequential_sweep`; `-w` loads a saved head (either package's) instead
+of training. DTW kNN and retrieval run as one batched sweep (kernel B2 on
+cuda, its plain twin on cpu); `--device_knn` and `--device_retrieval` are
+accepted for flag parity: the sweep is always on.
 """
 
 import argparse
@@ -23,8 +27,7 @@ from ..datasets.metadata_cache import load_video_metadata
 from ..datasets.recognition_data import (
     ACTION_DATA_DIR, load_fs_data, load_tennis_data)
 from ..tasks.recognize import (
-    KNN_MODELS, SEQ_MODELS, not_ported, run_action_recognition,
-    run_action_retrieval)
+    KNN_MODELS, SEQ_MODELS, run_action_recognition, run_action_retrieval)
 from . import paths
 
 DEFAULT_NUM_EPOCHS = 500
@@ -43,9 +46,7 @@ def get_args():
                         choices=DATASETS)
     parser.add_argument('-o', '--out_dir', type=str)
     parser.add_argument('--algorithm', type=str, default='gru',
-                        choices=KNN_MODELS + SEQ_MODELS,
-                        help='only dtw is ported; the sequence heads '
-                             'raise NotImplementedError (ROADMAP A6)')
+                        choices=KNN_MODELS + SEQ_MODELS)
     parser.add_argument('--retrieve', action='store_true')
     parser.add_argument('-ne', '--num_train_examples', nargs='+', type=int,
                         default=[-1])
@@ -63,22 +64,26 @@ def get_args():
     parser.add_argument('--device_knn', action='store_true',
                         help=_ALWAYS_ON)
     parser.add_argument('-w', '--load_weights', type=str,
-                        help='Load a pretrained head checkpoint (sequence '
-                             'heads only: not ported yet, ROADMAP A6)')
+                        help='Load a pretrained head checkpoint')
     parser.add_argument('--fused_sweep', action='store_true',
-                        help='sequence heads only: not ported yet '
-                             '(ROADMAP A6)')
+                        help='accepted for compatibility: the fused '
+                             'sweep (all trials of a few-shot size as '
+                             'one batched model, sequence heads only) is '
+                             'the default; sizes that are not fusable '
+                             'fall back to sequential trials '
+                             'automatically')
     parser.add_argument('--sequential_sweep', action='store_true',
-                        help='train few-shot trials one-by-one; the port '
-                             'has no fused sweep, so this is what it does')
+                        help='train few-shot trials one-by-one (the '
+                             'reference-shaped loop; same results as '
+                             'the fused sweep)')
     parser.add_argument('--action_dir', type=str,
                         help='override the packaged action_dataset dir '
                              '(labels, val ids, few-shot split files) — '
                              'tennis/fs only; lets synthetic corpora '
                              'drive the full CLI')
     parser.add_argument('--device', type=str, default='cuda',
-                        help='torch device of the DTW sweep (default '
-                             'cuda; cpu runs the plain twin)')
+                        help='torch device (default cuda; cpu runs '
+                             'the plain twin of the DTW kernel)')
     return parser.parse_args()
 
 
@@ -121,10 +126,12 @@ def main(emb_dir, dataset, out_dir, algorithm, num_train_examples, norm, k,
     """The CLI's work. `stats`, when a dict, receives what
     `run_action_recognition` / `run_action_retrieval` put in theirs.
     Returns their result: {ne: [trial accs]} or (hit@k, prec@k)."""
-    del device_retrieval, device_knn, sequential_sweep  # always the sweep
-    if not retrieve and algorithm in SEQ_MODELS:
+    del device_retrieval, device_knn  # always the sweep
+    del fused_sweep  # fused is the default; flag kept for compat
+    if not retrieve and algorithm in SEQ_MODELS and k != 1:
         # fail before minutes of dataset loading
-        raise not_ported('the {} sequence head'.format(algorithm), 'A6')
+        raise ValueError('sequence heads vote with k = 1, got k = {}'
+                         .format(k))
     device = resolve_device(device)  # no GPU: raise before loading data
     val_embs = val_labels = None
     if action_dir is not None:
@@ -186,8 +193,8 @@ def main(emb_dir, dataset, out_dir, algorithm, num_train_examples, norm, k,
         test_embs, test_labels, out_dir, algorithm, k,
         num_train_examples, few_shot_file, hidden_dim, attn,
         num_epochs, val_freq, n_trials, no_test_flip,
-        load_weights=load_weights, fused_sweep=fused_sweep, device=device,
-        stats=stats)
+        load_weights=load_weights, fused_sweep=not sequential_sweep,
+        device=device, stats=stats)
 
 
 if __name__ == '__main__':
