@@ -102,6 +102,24 @@ line each; any failure raises and exits non-zero:
              -m vpd_tpu_torch.tools.detect fs_jump` on a synthetic
              whole-video corpus (`write_detect_corpus`, 3 members, 2
              epochs), its AP table above that of random scores
+  flow       optical flow (no hand kernel: cuDNN convolutions, batched
+             products and plain torch) at compute_flow's defaults: basic
+             RAFT at the official widths (random init, seeded) on 128x128
+             pairs, batch 256, 20 iterations, bf16. f32 on the card (TF32
+             off) against the CPU on 2 pairs (atol 1e-3 after 3
+             iterations; the difference after 20 printed); bf16 against
+             f32 (endpoint error); pairs/s, peak memory and TFLOP/s of
+             RAFT bf16, RAFT f32 (cuDNN's TF32 default), raft-small and
+             LK, and RAFT's parts (encoders, correlation pyramid, one
+             lookup, one update block, upsampling); the yuv420 decode bit
+             for bit against the numpy reference; `python -m
+             vpd_tpu_torch.tools.compute_flow` on 512 synthetic pairs with
+             --model lk under raw, yuv420 and y8 and with --model raft,
+             its PNGs read back against the same flow in this process,
+             pairs/s and the upload packer that ran; `apply_vpd
+             --upload_codec yuv420` at the slice phase's width from raw
+             and from yuv420 shards (equal embeddings, B1's launches)
+             beside the raw codec, crops/s
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
@@ -129,6 +147,7 @@ from vpd_tpu_torch.core.metrics import fetch_metrics
 from vpd_tpu_torch.data import augment as aug
 from vpd_tpu_torch.data import crops as crops_mod
 from vpd_tpu_torch.data import native_loader
+from vpd_tpu_torch.data import upload_codec as ucodec
 from vpd_tpu_torch.data import vipe_sampler
 from vpd_tpu_torch.data.crops import CropBatchSource
 from vpd_tpu_torch.data.hbm_cache import CacheIndexSource, DeviceCropCache
@@ -142,6 +161,7 @@ from vpd_tpu_torch.infer import apply_vipe as av
 from vpd_tpu_torch.infer import apply_vpd as ap
 from vpd_tpu_torch.ops import _build
 from vpd_tpu_torch.ops import dtw_kernel as dtwk
+from vpd_tpu_torch.ops import flow as tflow
 from vpd_tpu_torch.ops import preprocess as pre
 from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
 from vpd_tpu_torch.tasks import neighbors as nb
@@ -149,6 +169,7 @@ from vpd_tpu_torch.tools import pack_crops as pack_cli
 from vpd_tpu_torch.tools import recognize as recognize_cli
 from vpd_tpu_torch.tools import train_vipe as vipe_cli
 from vpd_tpu_torch.models import gru as tgru
+from vpd_tpu_torch.models import raft as traft
 from vpd_tpu_torch.models.fc import set_dropout_draw
 from vpd_tpu_torch.tasks import detect as tdet
 from vpd_tpu_torch.train import classifier as tcls
@@ -223,6 +244,14 @@ HEADS_CPU_RTOL = 1e-5      # one step, float32 on the card against the CPU
 HEADS_CPU_PARAM_ATOL = 2e-4  # its parameters: lr / 5, 4x the 4.6e-5 drift
 PROPOSAL_B, PROPOSAL_T = 100, 250
 DETECT_MEMBERS, DETECT_EPOCHS, DETECT_FRAMES = 3, 2, 1500
+# optical flow (no hand kernel): compute_flow's defaults (batch 256, 20
+# RAFT iterations, bf16) at the official basic widths on 128x128 pairs
+FLOW_B, FLOW_ITERS = 256, 20
+FLOW_TIMED = 5             # timed batches a model (CUDA events, median)
+FLOW_CPU_PAIRS = 2
+FLOW_CPU_ATOL = 1e-3       # f32 on the card (TF32 off) against the CPU
+FLOW_CLI_PAIRS = 512
+FLOW_PNG_EQUAL = 0.999     # PNG values equal to the in-process flow's
 
 
 # the teacher's synthetic mocap corpus, in tools/paths' layout; the people
@@ -396,8 +425,9 @@ def cuda_ms(fn, iters=20, warmup=3, reps=1):
     return statistics.median(times)
 
 
-def _encoder_flops(enc, x):
-    """Multiply-add flops of one encoder call on `x`, from the shapes."""
+def _flops(module, fn):
+    """Multiply-add flops of the convolutions and linears of `module`
+    that `fn()` runs, from their output shapes."""
     total = [0]
 
     def hook(mod, args, out):
@@ -408,15 +438,20 @@ def _encoder_flops(enc, x):
             k = mod.in_features
         total[0] += 2 * out.numel() * k
 
-    handles = [m.register_forward_hook(hook) for m in enc.modules()
+    handles = [m.register_forward_hook(hook) for m in module.modules()
                if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
     try:
         with torch.inference_mode():
-            enc(x)
+            fn()
     finally:
         for h in handles:
             h.remove()
     return total[0]
+
+
+def _encoder_flops(enc, x):
+    """Multiply-add flops of one encoder call on `x`, from the shapes."""
+    return _flops(enc, lambda: enc(x))
 
 
 def phase_env():
@@ -2376,6 +2411,344 @@ def phase_heads(card):
           'detect_cli': detect})
 
 
+# ------------------------------------------------------------------- flow
+
+def _flow_scene(rng, b, size=IMG):
+    """Textured uint8 RGB pairs (B, S, S, 3): bilinear-upsampled 16x16
+    noise, the second frame moved by a random shift of up to 4 px."""
+    import cv2
+    one, two = [], []
+    for _ in range(b):
+        img = cv2.resize(rng.integers(0, 256, (size // 8, size // 8, 3),
+                                      np.uint8), (size, size),
+                         interpolation=cv2.INTER_CUBIC)
+        dy, dx = rng.integers(-4, 5, 2)
+        one.append(img)
+        two.append(np.roll(np.roll(img, dy, axis=0), dx, axis=1))
+    return np.stack(one), np.stack(two)
+
+
+def _raft_parts_ms(model, im1, im2, dt):
+    """CUDA-event ms of one forward's parts at its real shapes: the three
+    encoder passes, the correlation pyramid, one lookup, one update block
+    and the upsampling."""
+    b = im1.shape[0]
+    out = {}
+    with torch.inference_mode():
+        def prep(img):
+            return (2. * (img.float() / 255.) - 1.).permute(
+                0, 3, 1, 2).to(dt)
+        x1, x2 = prep(im1), prep(im2)
+        both = torch.cat([x1, x2])
+        out['encoders'] = cuda_ms(lambda: (model.fnet(both), model.cnet(x1)),
+                                  iters=5)
+        fmaps, cnet = model.fnet(both), model.cnet(x1)
+        f1, f2 = (f.permute(0, 2, 3, 1) for f in (fmaps[:b], fmaps[b:]))
+        out['corr_pyramid'] = cuda_ms(lambda: traft.corr_pyramid(f1, f2),
+                                      iters=5)
+        pyramid = traft.corr_pyramid(f1, f2)
+        net = torch.tanh(cnet[:, :model.hidden_dim])
+        inp = torch.relu(cnet[:, model.hidden_dim:])
+        coords = traft.coords_grid(b, f1.shape[1], f1.shape[2],
+                                   device=im1.device)
+        coords = coords + torch.randn_like(coords)
+        out['lookup'] = cuda_ms(
+            lambda: traft.corr_lookup(pyramid, coords, model.corr_radius),
+            iters=5)
+        corr = traft.corr_lookup(pyramid, coords, model.corr_radius)
+        corr = corr.permute(0, 3, 1, 2).to(dt)
+        flow = torch.zeros((b, 2) + corr.shape[2:], device=im1.device,
+                           dtype=dt)
+        out['update'] = cuda_ms(
+            lambda: model.update_block(net, inp, corr, flow), iters=5)
+        _, mask, _ = model.update_block(net, inp, corr, flow)
+        flow = flow.permute(0, 2, 3, 1).float()
+        out['upsample'] = cuda_ms(lambda: traft.upsample_flow_convex(
+            flow, mask.permute(0, 2, 3, 1)), iters=5)
+    return out
+
+
+def _raft_on_card(rng):
+    """RAFT at full width: f32 against the CPU, bf16 against f32, the
+    timed forwards at batch 256 and their parts, peak memory."""
+    model = traft.build_raft(seed=SEED).cuda()
+    small = traft.build_raft(small=True, seed=SEED).cuda()
+    a, b = _flow_scene(rng, FLOW_B)
+    im1, im2 = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    out = {}
+
+    # f32 on the card (TF32 off) against the CPU on a few pairs
+    cpu_model = traft.build_raft(seed=SEED)
+    c1, c2 = (torch.from_numpy(x[:FLOW_CPU_PAIRS]) for x in (a, b))
+    with _no_tf32(), torch.inference_mode():
+        for iters in (3, FLOW_ITERS):
+            ref = cpu_model(c1, c2, iters=iters)
+            got = model(c1.cuda(), c2.cuda(), iters=iters).cpu()
+            out['f32_vs_cpu_max_abs_{}_iters'.format(iters)] = float(
+                (got - ref).abs().max())
+    if not out['f32_vs_cpu_max_abs_3_iters'] <= FLOW_CPU_ATOL:
+        raise AssertionError('RAFT f32 on the card against the CPU: {} '
+                             '(bar {})'.format(
+                                 out['f32_vs_cpu_max_abs_3_iters'],
+                                 FLOW_CPU_ATOL))
+
+    fns = {'raft_bf16': traft.raft_flow_fn(model, FLOW_ITERS,
+                                           torch.bfloat16),
+           'raft_f32': traft.raft_flow_fn(model, FLOW_ITERS),
+           'raft_small_bf16': traft.raft_flow_fn(small, FLOW_ITERS,
+                                                 torch.bfloat16),
+           'lk': tflow.lucas_kanade_flow}
+    flows = {name: fn(im1, im2) for name, fn in fns.items()}
+    for name, f in flows.items():
+        if f.shape != (FLOW_B, IMG, IMG, 2) or not torch.isfinite(f).all():
+            raise AssertionError('{}: bad flow {}'.format(name, f.shape))
+    epe = (flows['raft_bf16'] - flows['raft_f32']).norm(dim=-1)
+    out['bf16_vs_f32_epe_mean'] = float(epe.mean())
+    out['bf16_vs_f32_epe_max'] = float(epe.max())
+    out['flow_magnitude_mean_f32'] = float(
+        flows['raft_f32'].norm(dim=-1).mean())
+    # LK: the card against the CPU (no parity bar on the card; textured)
+    with torch.inference_mode():
+        lk_cpu = tflow.lucas_kanade_flow(c1, c2)
+    out['lk_vs_cpu_max_abs'] = float(
+        (flows['lk'][:FLOW_CPU_PAIRS].cpu() - lk_cpu).abs().max())
+    del flows, epe
+
+    for name, fn in fns.items():
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: fn(im1, im2), iters=FLOW_TIMED, warmup=1)
+        out[name] = {'ms_per_batch': ms,
+                     'pairs_per_s': FLOW_B / ms * 1e3,
+                     'peak_memory_gib':
+                         torch.cuda.max_memory_allocated() / 2**30}
+    for name, net in (('raft_bf16', model), ('raft_small_bf16', small)):
+        flops = _flops(net, lambda: fns[name](im1, im2))
+        f = FLOW_B * (IMG // 8) ** 4 * (256 if net is model else 128) * 2
+        out[name]['gflop_per_pair'] = (flops + f) / FLOW_B / 1e9
+        out[name]['tflops_per_s'] = (flops + f) / out[name][
+            'ms_per_batch'] / 1e9
+        out[name]['share_of_bf16_peak'] = out[name]['tflops_per_s'] * 1e12 \
+            / BF16_FLOPS_PER_S
+    parts = _raft_parts_ms(model, im1, im2, torch.bfloat16)
+    loop = FLOW_ITERS * (parts['lookup'] + parts['update'])
+    out['raft_bf16']['parts_ms'] = parts
+    out['raft_bf16']['update_loop_ms'] = loop
+    out['raft_bf16']['update_loop_share'] = loop / (
+        loop + parts['encoders'] + parts['corr_pyramid'] + parts['upsample'])
+    return out
+
+
+def _flow_cli(root, name, *args):
+    """`python -m vpd_tpu_torch.tools.compute_flow` on the pair tree:
+    (pairs/s over its pipeline as it printed, seconds with process start,
+    the packer line it printed)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'vpd_tpu_torch.tools.compute_flow', root,
+         '--out_name', name, *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError('compute_flow {} failed ({}): {}'.format(
+            args, proc.returncode, proc.stderr[-3000:]))
+    lines = proc.stdout.splitlines()
+    timing = [ln for ln in lines if ln.endswith(' s') and 'pairs in' in ln]
+    n, pipe_s = timing[0].split(' pairs in ')
+    packer = [ln.split(': ', 1)[1] for ln in lines
+              if ln.startswith('upload packer batches')]
+    return {'pairs': int(n), 'pipeline_s': float(pipe_s[:-2]),
+            'pairs_per_s': int(n) / float(pipe_s[:-2]),
+            'seconds_with_start': secs,
+            'packer_batches': packer[0] if packer else None}
+
+
+def _cli_on_card(rng):
+    """The compute_flow CLI over a tree of FLOW_CLI_PAIRS pairs (4 videos),
+    with `--model lk` under raw, yuv420 and y8 and with `--model raft`;
+    every PNG read back against the same flow computed in this process."""
+    import cv2
+    root = os.path.join(WORK, 'flow_pairs')
+    a, b = _flow_scene(rng, FLOW_CLI_PAIRS)
+    prefixes = []
+    for i in range(FLOW_CLI_PAIRS):
+        d = os.path.join(root, 'video{}'.format(i % 4))
+        os.makedirs(d, exist_ok=True)
+        p = os.path.join(d, str(i // 4))
+        cv2.imwrite(p + '.prev.png', np.ascontiguousarray(a[i][..., ::-1]))
+        cv2.imwrite(p + '.png', np.ascontiguousarray(b[i][..., ::-1]))
+        prefixes.append(p)
+    order = sorted(range(FLOW_CLI_PAIRS), key=lambda i: prefixes[i])
+    raft = traft.raft_flow_fn(traft.build_raft(seed=SEED).cuda(),
+                              FLOW_ITERS, torch.bfloat16)
+    runs = {'lk_raw': ([], tflow.lucas_kanade_flow, None),
+            'lk_yuv420': (['--upload_codec', 'yuv420'],
+                          tflow.lucas_kanade_flow, 'yuv420'),
+            'lk_y8': (['--upload_codec', 'y8'], tflow.lucas_kanade_flow_gray,
+                      'y8'),
+            'raft': (['--model', 'raft', '--raft_iters', str(FLOW_ITERS)],
+                     raft, None)}
+    out = {}
+    for name, (args, fn, codec) in runs.items():
+        res = _flow_cli(root, name, *args)
+        qfn = tflow.make_quantized_flow_fn(fn)
+        diff_max, equal = 0, 0
+        for s in range(0, FLOW_CLI_PAIRS, FLOW_B):
+            idx = order[s:s + FLOW_B]
+            x1, x2 = a[idx], b[idx]
+            if codec == 'yuv420':
+                x1, x2 = (ucodec.decode_yuv420(torch.from_numpy(
+                    ucodec.encode_yuv420_numpy(x)).cuda(), IMG, IMG)
+                    for x in (x1, x2))
+            elif codec == 'y8':
+                x1, x2 = (torch.from_numpy(ucodec.encode_luma(x).reshape(
+                    -1, IMG, IMG)).cuda() for x in (x1, x2))
+            else:
+                x1, x2 = torch.from_numpy(x1).cuda(), torch.from_numpy(
+                    x2).cuda()
+            want = qfn(x1, x2).cpu().numpy().astype(int)
+            got = np.stack([cv2.imread('{}.{}.png'.format(
+                prefixes[i], name), cv2.IMREAD_UNCHANGED) for i in idx])
+            if not (got[..., 2] == 128).all():
+                raise AssertionError('{}: third channel not 128'.format(name))
+            d = np.abs(got[..., :2].astype(int) - want)
+            diff_max = max(diff_max, int(d.max()))
+            equal += int((d == 0).sum())
+        res['png_max_step_vs_in_process'] = diff_max
+        res['png_equal_share'] = equal / (FLOW_CLI_PAIRS * IMG * IMG * 2)
+        if diff_max > 1 or res['png_equal_share'] < FLOW_PNG_EQUAL:
+            raise AssertionError('{}: PNGs against the in-process flow: max '
+                                 'step {}, equal {}'.format(
+                                     name, diff_max, res['png_equal_share']))
+        out[name] = res
+    out['packer_here'] = ('native' if ucodec._native_packer(
+        'vpd_yuv420_pack') else 'numpy (the native library does not build '
+        'on this host)')
+    # the host's share: one thread's PNG decode of a frame and level-9
+    # encode of an LK payload (the CLI encodes in 8 threads)
+    paths = [prefixes[i] + '.png' for i in order[:64]]
+    t0 = time.perf_counter()
+    crops_mod.decode_crop_batch(paths, IMG)
+    out['png_decode_ms_per_frame'] = (time.perf_counter() - t0) / len(
+        paths) * 1e3
+    payloads = [cv2.imread(p[:-len('.png')] + '.lk_raw.png',
+                           cv2.IMREAD_UNCHANGED) for p in paths]
+    t0 = time.perf_counter()
+    for img in payloads:
+        cv2.imencode('.png', img, [cv2.IMWRITE_PNG_COMPRESSION, 9])
+    out['png_encode_ms_per_lk_payload_level9'] = \
+        (time.perf_counter() - t0) / len(paths) * 1e3
+    shutil.rmtree(root)
+    return out
+
+
+def _yuv420_shards(raw_dir, out_dir):
+    """The yuv420 shards `pack_crops --codec yuv420` writes for the crops
+    of the raw shards in `raw_dir`: each rgb stream through
+    `encode_yuv420`, flow and index as they are."""
+    reader = ShardReader(raw_dir)
+    os.makedirs(out_dir)
+    for sid, rgb in enumerate(reader._rgb):
+        base = 's{:04d}'.format(sid)
+        ucodec.encode_yuv420_numpy(np.asarray(rgb)).tofile(
+            os.path.join(out_dir, base + '.rgb'))
+        shutil.copyfile(os.path.join(raw_dir, base + '.flow'),
+                        os.path.join(out_dir, base + '.flow'))
+    shutil.copyfile(os.path.join(raw_dir, 'shards_index.pkl'),
+                    os.path.join(out_dir, 'shards_index.pkl'))
+    meta = dict(reader.meta, codec='yuv420')
+    with open(os.path.join(out_dir, 'shards_meta.json'), 'w') as fp:
+        json.dump(meta, fp, indent=2)
+
+
+def _yuv420_extraction():
+    """`apply_vpd --upload_codec yuv420` at the slice phase's width (the
+    flow student, 1,200 crops, batch 512) from raw shards (the host packs)
+    and from yuv420 shards, beside the raw codec; B1's launches counted
+    over the two yuv420 runs."""
+    crop_dir = os.path.join(WORK, 'crops')
+    student = os.path.join(WORK, 'student_flow')
+    prepared = ap.load_student_dir(student)
+    raw_dir, yuv_dir = (os.path.join(WORK, d) for d in ('shards',
+                                                        'shards_yuv420'))
+    _yuv420_shards(raw_dir, yuv_dir)
+    readers = {d: ShardReader(d, crop_root=crop_dir)
+               for d in (raw_dir, yuv_dir)}
+    keys = [(v, f) for v in range(VIDEOS) for f in range(FRAMES)]
+    tasks = [(v, f, os.path.join(crop_dir, 'video{}'.format(v), str(f)))
+             for v, f in keys]
+    videos = ['video{}'.format(v) for v in range(VIDEOS)]
+
+    def run(name, reader, codec):
+        out = os.path.join(WORK, 'yuv_' + name)
+        t0 = time.perf_counter()
+        ap.apply_vpd(videos, tasks, student, out, flow_img_name='flow',
+                     batch_size=BATCH, prepared=prepared,
+                     shard_reader=readers[reader], upload_codec=codec,
+                     log=lambda *a: None)
+        secs = time.perf_counter() - t0
+        embs = _load_embs(out)
+        _check_rows(embs, range(FRAMES))
+        return len(tasks) / secs, _stack(embs, keys)
+
+    run('warm', yuv_dir, 'yuv420')  # cuDNN plans for the decoded batches
+    rates, embs = {}, {}
+    rates['raw'], embs['raw'] = run('raw', raw_dir, None)
+    packed_before = dict(ucodec.packer_calls)
+    pre.launches = 0
+    for name, reader in (('yuv420_from_raw_shards', raw_dir),
+                         ('yuv420_from_yuv420_shards', yuv_dir)):
+        rates[name], embs[name] = run(name, reader, 'yuv420')
+    launches = pre.launches
+    n_chunks = -(-len(tasks) // BATCH)
+    if launches != 2 * n_chunks:
+        raise AssertionError('B1 launched {} times on the yuv420 path, '
+                             'expected {}'.format(launches, 2 * n_chunks))
+    same = np.array_equal(embs['yuv420_from_raw_shards'],
+                          embs['yuv420_from_yuv420_shards'])
+    if not same:
+        raise AssertionError('yuv420 from raw shards and from yuv420 shards '
+                             'differ: max {}'.format(np.abs(
+                                 embs['yuv420_from_raw_shards']
+                                 - embs['yuv420_from_yuv420_shards']).max()))
+    cos, _ = _cosines(embs['yuv420_from_yuv420_shards'], embs['raw'])
+    return {'crops': len(tasks), 'batch': BATCH,
+            'crops_per_s': rates, 'b1_launches': launches,
+            'raw_and_yuv420_shards_equal': same,
+            'min_cosine_yuv420_vs_raw_codec': cos,
+            'host_packer_batches': {
+                k: ucodec.packer_calls[k] - packed_before[k]
+                for k in packed_before}}, launches
+
+
+def phase_flow(card):
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    result = {'phase': 'flow', 'card': card, 'batch': FLOW_B,
+              'img': IMG, 'iters': FLOW_ITERS}
+    result['models'] = _raft_on_card(rng)
+    # the yuv420 decode on the card, bit for bit
+    packed = ucodec.encode_yuv420_numpy(rng.integers(
+        0, 256, (FLOW_B, IMG, IMG, 3), np.uint8))
+    arbitrary = rng.integers(0, 256, packed.shape, np.uint8)
+    for name, p in (('encoded', packed), ('arbitrary', arbitrary)):
+        got = ucodec.decode_yuv420(torch.from_numpy(p).cuda(), IMG, IMG)
+        if not np.array_equal(got.cpu().numpy(),
+                              ucodec.decode_yuv420_reference(p, IMG, IMG)):
+            raise AssertionError('yuv420 decode on the card differs from '
+                                 'the reference ({})'.format(name))
+    dev = torch.from_numpy(packed).cuda()
+    result['yuv420_decode'] = {
+        'bit_equal': True, 'ms_per_batch': cuda_ms(
+            lambda: ucodec.decode_yuv420(dev, IMG, IMG), iters=10),
+        'bound_ms': (packed.nbytes + FLOW_B * IMG * IMG * 3)
+        / HBM_BYTES_PER_S * 1e3}
+    result['cli'] = _cli_on_card(rng)
+    result['yuv420_extraction'], launches = _yuv420_extraction()
+    result['seconds'] = time.perf_counter() - t0
+    emit(result)
+    return launches
+
+
 def main():
     phase_env()
     card = card_line()
@@ -2390,13 +2763,18 @@ def main():
                'replaces': 'vpd_tpu/ops/pallas/dtw_kernel.py:53',
                'max_abs_err': dtw_abs, 'max_rel_err': dtw_rel,
                **phase_recognize(card), 'library_ms': None}
-        preprocess['launches'] = phase_slice(card)
+        slice_launches = phase_slice(card)
         train = phase_train(card)
         phase_cache(card, train)
         phase_teacher(card, train)
         phase_heads(card)
+        yuv420_launches = phase_flow(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    # B1's launches on its two paths, each counted from 0 around its runs
+    preprocess['launches'] = slice_launches + yuv420_launches
+    preprocess['launches_by_path'] = {'slice': slice_launches,
+                                      'yuv420_extraction': yuv420_launches}
     print(card)
     emit({'kernels': [preprocess, dtw]})
     emit({'ok': True, 'device': {'platform': 'gpu',

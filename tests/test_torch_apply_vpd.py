@@ -124,7 +124,7 @@ def assert_same_extraction(port, ref, cos_bar):
         assert cos.min() >= cos_bar, cos.min()
 
 
-def run_both(world, use_flow, out, jax_dtype, torch_dtype):
+def run_both(world, use_flow, out, jax_dtype, torch_dtype, **kw):
     root, crop_dir, dirs = world
     videos, tasks = japply.scan_crop_dir(crop_dir)
     flow_name = 'flow' if use_flow else None
@@ -133,14 +133,14 @@ def run_both(world, use_flow, out, jax_dtype, torch_dtype):
                      flow_img_name=flow_name, batch_size=5,
                      prepared=japply.load_student_dir(dirs[use_flow],
                                                       dtype=jax_dtype),
-                     log=lambda *a: None)
+                     log=lambda *a: None, **kw)
     tvideos, ttasks = tapply.scan_crop_dir(crop_dir)
     assert (tvideos, ttasks) == (videos, tasks)
     tapply.apply_vpd(tvideos, ttasks, dirs[use_flow], tout,
                      flow_img_name=flow_name, batch_size=5,
                      prepared=tapply.load_student_dir(
                          dirs[use_flow], dtype=torch_dtype, device='cpu'),
-                     log=lambda *a: None, device='cpu')
+                     log=lambda *a: None, device='cpu', **kw)
     return load_out(tout), load_out(jout)
 
 
@@ -311,11 +311,19 @@ def test_entry_points_need_a_gpu_unless_told_cpu(world):
 @pytest.mark.parametrize('kw', [{'upload_codec': 'yuv420'},
                                 {'mesh': object()}])
 def test_unported_options_raise(world, kw):
+    """The multi-device fan-out (ROADMAP A11) still raises. The yuv420
+    upload codec is ported: both packages extract with it from PNGs, at
+    the float32 bar (tests/test_torch_upload_codec.py covers shards)."""
     _, crop_dir, dirs = world
     videos, tasks = tapply.scan_crop_dir(crop_dir)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tapply.apply_vpd(videos, tasks, dirs[False], '/nonexistent',
-                         device='cpu', **kw)
+    if 'mesh' in kw:
+        with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+            tapply.apply_vpd(videos, tasks, dirs[False], '/nonexistent',
+                             device='cpu', **kw)
+        return
+    port, ref = run_both(world, True, 'yuv420', jnp.float32, torch.float32,
+                         **kw)
+    assert_same_extraction(port, ref, 1 - 1e-4)
 
 
 def test_decoders_agree_and_keep_raw_flow_order(world, monkeypatch):

@@ -46,6 +46,14 @@ cuda against the CPU with TF32 off (losses and running statistics at rtol
 no host sync inside a training epoch of the fused sweep (dropout on)
 nor inside a proposal step, and the RNN's CUDA graphs training the
 fused sweep to the same weights as eager launches.
+
+Optical flow and the upload codec (no hand kernel: cuDNN convolutions,
+batched products and plain torch): RAFT basic and small in float32 on the
+card against the CPU with TF32 off (atol 1e-3, the CPU parity bar, after
+3 iterations), the yuv420 decode bit for bit against the numpy
+reference, the flow quantization with median subtraction against the
+numpy `flow_to_img`, and no host sync inside one RAFT batch (bf16, the
+quantization included).
 """
 
 import copy
@@ -60,6 +68,7 @@ from vpd_tpu_torch.core.io import store_embs_pickle
 from vpd_tpu_torch.data.augment import (sample_train_augment,
                                         train_augment_batch)
 from vpd_tpu_torch.data import vipe_sampler as tvs
+from vpd_tpu_torch.data import upload_codec as tcodec
 from vpd_tpu_torch.data.crops import CropBatchSource
 from vpd_tpu_torch.data.hbm_cache import CacheIndexSource, DeviceCropCache
 from vpd_tpu_torch.data.shards import ShardReader, write_raw_shards
@@ -71,6 +80,8 @@ from vpd_tpu_torch.geometry.camera import random_project_offsets
 from vpd_tpu_torch.models.fc import FlaxDropout, set_dropout_draw
 from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
 from vpd_tpu_torch.models import gru as tgru
+from vpd_tpu_torch.models import raft as traft
+from vpd_tpu_torch.ops import flow as tflow
 from vpd_tpu_torch.train import classifier as tcls
 from vpd_tpu_torch.train import proposal as tprop
 from vpd_tpu_torch.train import vipe as tvipe
@@ -879,3 +890,75 @@ def test_sequential_ensemble_matches_fused_on_card(cuda_device):
     np.testing.assert_allclose(fused.predict_n(X[0], X[1]),
                                seq.predict_n(X[0], X[1]), rtol=2e-4,
                                atol=2e-5)
+
+
+# ----------------------------------------------- optical flow and codec
+
+def _flow_pairs(b, size, seed=0):
+    rng = np.random.default_rng(seed)
+    im1 = rng.integers(0, 256, (b, size, size, 3), np.uint8)
+    im2 = np.roll(im1, 2, axis=2)
+    return torch.from_numpy(im1), torch.from_numpy(im2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('small', [False, True])
+def test_raft_f32_on_card_matches_cpu(cuda_device, small):
+    model = traft.build_raft(small=small, seed=1)
+    im1, im2 = _flow_pairs(2, 128)
+    with torch.no_grad():
+        ref = model(im1, im2, iters=3).numpy()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = model.to(cuda_device)(im1.to(cuda_device),
+                                        im2.to(cuda_device), iters=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert got.is_cuda and got.shape == (2, 128, 128, 2)
+    np.testing.assert_allclose(got.cpu().numpy(), ref, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_yuv420_decode_bit_equal_on_card(cuda_device):
+    rng = np.random.default_rng(3)
+    encoded = tcodec.encode_yuv420_numpy(
+        rng.integers(0, 256, (32, 128, 128, 3), np.uint8))
+    arbitrary = rng.integers(0, 256, encoded.shape, np.uint8)
+    for packed in (encoded, arbitrary):
+        got = tcodec.decode_yuv420(torch.from_numpy(packed).to(cuda_device),
+                                   128, 128)
+        assert got.is_cuda and got.dtype == torch.uint8
+        np.testing.assert_array_equal(
+            got.cpu().numpy(),
+            tcodec.decode_yuv420_reference(packed, 128, 128))
+
+
+@pytest.mark.cuda
+def test_flow_quantization_on_card_matches_numpy(cuda_device):
+    flow = np.random.default_rng(4).normal(
+        scale=12., size=(8, 128, 128, 2)).astype(np.float32)
+    for median in (False, True):
+        got = tflow.quantize_flow_device(
+            torch.from_numpy(flow).to(cuda_device), subtract_median=median)
+        want = np.stack([tflow.flow_to_img(
+            tflow.subtract_median(f) if median else f)[..., :2]
+            for f in flow])
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_raft_batch_makes_no_host_sync(cuda_device):
+    model = traft.build_raft().to(cuda_device)
+    qfn = tflow.make_quantized_flow_fn(
+        traft.raft_flow_fn(model, iters=4, dtype=torch.bfloat16),
+        subtract_median=True)
+    im1, im2 = (t.to(cuda_device) for t in _flow_pairs(4, 128))
+    qfn(im1, im2)  # first call: cuDNN plans, allocator
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = qfn(im1, im2)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert out.dtype == torch.uint8 and out.shape == (4, 128, 128, 2)

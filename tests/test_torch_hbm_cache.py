@@ -362,14 +362,24 @@ def test_cache_guards_raise(world, case, tmp_path, monkeypatch):
 
 
 def test_yuv420_shards_are_refused(world, tmp_path):
-    """vpd_tpu's yuv420 shards: the port's reader (and so the cache)
-    refuses them, naming the upload codec's ROADMAP item."""
-    _, crop_dir, _, _, _ = world
+    """vpd_tpu's yuv420 shards: the port's reader reads them (packed
+    rows), and the device crop cache and the training source refuse them,
+    as vpd_tpu's cache does."""
+    _, crop_dir, _, samples, _ = world
     shard_dir = str(tmp_path / 'yuv')
     jpack_crops(crop_dir, shard_dir, IMG, use_mask=False, codec='yuv420',
                 use_native=False, log=_quiet)
-    with pytest.raises(NotImplementedError, match='ROADMAP A3'):
-        ShardReader(shard_dir, crop_root=crop_dir)
+    reader = ShardReader(shard_dir, crop_root=crop_dir)
+    assert reader.codec == 'yuv420' and len(reader) == 16
+    assert reader._rgb[0].shape == (16, IMG * IMG * 3 // 2)
+    with pytest.raises(ValueError, match='extraction-only'):
+        thbm.DeviceCropCache(reader, device='cpu', log=_quiet)
+    with pytest.raises(AssertionError, match='extraction-only'):
+        jhbm.DeviceCropCache(JShardReader(shard_dir, crop_root=crop_dir),
+                             log=_quiet)
+    with pytest.raises(ValueError, match='extraction-only'):
+        tcrops.CropBatchSource(samples, crop_dir, IMG, 4, use_mask=False,
+                               shard_dir=shard_dir)
 
 
 # ---------------------------------------------------------------- CLI

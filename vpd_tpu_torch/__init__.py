@@ -6,18 +6,20 @@ numpy only: never jax, flax or anything of `vpd_tpu` (tests import both
 packages to hold one against the other).
 
 Layer map (the ported slices: student feature extraction; DTW
-recognition and retrieval; student training and its input):
+recognition and retrieval; student training and its input; the teacher;
+the heads on frozen embeddings; optical flow and the upload codec):
   core/      io + `.emb.pkl` interchange, flax-msgpack checkpoints, pipeline,
              single-readback metrics
   data/      eval transforms and the train augmentation, crop PNG decode
-             (native C++ decoder, cv2, PIL), packed raw shards and
+             (native C++ decoder, cv2, PIL), packed shards and
              pack_crops, training batch sources, prefetch, decode worker
-             processes, the device crop cache
+             processes, the device crop cache, the yuv420 upload codec
   datasets/  dense embedding matrices, action windows and splits
   ops/       hand-written CUDA kernels (csrc/) with their plain twins; DTW;
-             the nvcc and g++ builds
-  models/    ResNet student, FCNet, flax weight mapping, torchvision
-             ImageNet state_dicts
+             the LK flow pyramid and flow-PNG quantization; the nvcc and
+             g++ builds
+  models/    ResNet student, FCNet, RAFT, flax weight mapping,
+             torchvision ImageNet state_dicts
   train/     student modules, the train step and the epoch loop
   infer/     batched embedding extraction (.emb.pkl writers)
   tasks/     kNN / retrieval over DTW, the few-shot protocol

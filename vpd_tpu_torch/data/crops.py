@@ -234,6 +234,10 @@ class CropBatchSource:
         if shard_dir is not None:  # packed-shard cache: memcpy, no codec
             from .shards import ShardReader
             self.shards = ShardReader(shard_dir, crop_root=img_dir)
+            if self.shards.codec != 'raw':
+                raise ValueError(
+                    'training reads raw pixels; "{}" shards are extraction-'
+                    'only (pack without --codec)'.format(self.shards.codec))
             packed = self.shards.meta['flow_img_name']
             if flow_img_name and packed != flow_img_name:
                 raise ValueError('shards packed with flow "{}", model needs '

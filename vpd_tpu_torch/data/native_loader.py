@@ -14,8 +14,9 @@ takes the cv2/PIL path, which gives the same bytes.
 Byte contract (the cv2 path's): rgb in RGB order, flow in raw (BGR)
 order with consumers reading channels 0-1, masks as the single grey
 channel. A missing or corrupt rgb or flow file raises; a missing mask
-zero-fills. The yuv420 and luma packers the library also exports belong
-to the upload codec (ROADMAP A3) and are not bound here.
+zero-fills. `yuv420_pack` and `luma_pack` bind the library's packers of
+the upload codec (`data/upload_codec.py`), bit-equal to its numpy
+encoders because the library is built with FMA contraction off.
 """
 
 import ctypes
@@ -58,6 +59,11 @@ def get_lib():
         ctypes.c_int32,
         ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_uint8)]
+    for pack_fn in (lib.vpd_yuv420_pack, lib.vpd_luma_pack):
+        pack_fn.restype = ctypes.c_int64
+        pack_fn.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8)]
     _lib = lib
     return _lib
 
@@ -121,3 +127,36 @@ def decode_crops(rgb_paths, img_dim, *, flow_paths=None, mask_paths=None,
     if failures:
         raise IOError('{} crop/flow PNGs failed to decode'.format(failures))
     return rgb_out, flow_out, mask_out
+
+
+def _pack(fn_name, rgb, out_cols, n_threads):
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError('the native packers are unavailable (no g++ or '
+                           'libpng headers to build {})'.format(SRC))
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 4 or rgb.shape[-1] != 3:
+        raise ValueError('need (B, H, W, 3) uint8 RGB, got {} {}'.format(
+            rgb.dtype, rgb.shape))
+    b, h, w, _ = rgb.shape
+    out = np.empty((b, out_cols(h, w)), np.uint8)
+    if n_threads is None:
+        n_threads = min(16, os.cpu_count() or 1)
+    rc = getattr(lib, fn_name)(_buf_arg(rgb, rgb.shape), b, h, w, n_threads,
+                               _buf_arg(out, out.shape))
+    if rc != 0:
+        raise RuntimeError('{} failed: {}'.format(fn_name, rc))
+    return out
+
+
+def yuv420_pack(rgb, n_threads=None):
+    """(B, H, W, 3) uint8 RGB -> (B, H*W*3//2) packed YUV 4:2:0 planes
+    with the native single-pass packer (GIL released)."""
+    from .upload_codec import packed_nbytes
+    return _pack('vpd_yuv420_pack', rgb, packed_nbytes, n_threads)
+
+
+def luma_pack(rgb, n_threads=None):
+    """(B, H, W, 3) uint8 RGB -> (B, H*W) uint8 Y planes (the y8 codec;
+    odd dims allowed)."""
+    return _pack('vpd_luma_pack', rgb, lambda h, w: h * w, n_threads)

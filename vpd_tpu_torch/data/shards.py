@@ -1,22 +1,27 @@
 """Packed crop shards: a decode-free cache of crop PNG directories.
 
-Counterpart of `vpd_tpu/data/shards.py:176-320` for `codec='raw'` shards:
-fetching a batch is a numpy memmap gather (memcpy, no codec). Layout
-under <shard_dir>, as `vpd_tpu.data.shards.pack_crops` writes it:
+Counterpart of `vpd_tpu/data/shards.py`: fetching a batch is a numpy
+memmap gather (memcpy, no codec). Layout under <shard_dir>, as
+`vpd_tpu.data.shards.pack_crops` writes it:
 
   shards_meta.json          img_dim, codec, rows_per_shard, shard rows
   shards_index.pkl          {rel_prefix: global_row}
-  s<NNNN>.rgb               (rows, S, S, 3) uint8, C-contiguous
+  s<NNNN>.rgb               (rows, S, S, 3) uint8 [codec=raw], or
+                            (rows, S*S*3//2) packed YUV420 [codec=yuv420]
   s<NNNN>.flow              (rows, S, S, 3) uint8         [if flow packed]
   s<NNNN>.mask              (rows, S, S) uint8            [if masks packed]
 
 `rel_prefix` is the crop path relative to the image root, '/'-separated,
 without extension: 'video/frame' or 'video/player/frame'. Extraction
-reads rgb and flow, training rgb, flow and masks. `pack_crops` (the
-counterpart of `vpd_tpu/data/shards.py:52-173`) transcodes a PNG tree
-once into this layout, byte for byte as vpd_tpu's writes it;
-`write_raw_shards` writes already-decoded arrays. `yuv420` shards are not
-ported yet (ROADMAP A3, the upload codec).
+reads rgb and flow, training rgb, flow and masks. `pack_crops` transcodes
+a PNG tree once into this layout, byte for byte as vpd_tpu's writes it;
+`write_raw_shards` writes already-decoded arrays. `codec='yuv420'` stores
+the rgb stream pre-packed in the upload codec (`data/upload_codec.py`),
+for extraction with `--upload_codec yuv420` only: the bytes are
+`encode_yuv420` of the raw stream, so yuv420 shards and raw shards give
+the same embeddings under that codec. Training and the device crop cache
+consume raw pixels and refuse yuv420 shards. Flow and mask streams are
+always raw.
 """
 
 import json
@@ -26,6 +31,7 @@ import re
 import numpy as np
 
 from .crops import decode_crop_batch
+from .upload_codec import CODECS, encode_yuv420, packed_nbytes
 from ..core.io import load_pickle, store_json, store_pickle
 
 META_FILE = 'shards_meta.json'
@@ -35,11 +41,12 @@ _FRAME_RE = re.compile(r'^\d+\.png$')
 _PACK_BATCH = 256
 
 
-def _no_yuv420(codec):
-    if codec != 'raw':
-        raise NotImplementedError(
-            '"{}" shards are not ported yet (ROADMAP A3: the yuv420 upload '
-            'codec and its shards); repack with codec "raw"'.format(codec))
+def _rgb_row_shape(codec, img_dim):
+    if codec not in CODECS:
+        raise ValueError('unknown shard codec "{}"'.format(codec))
+    if codec == 'yuv420':
+        return (packed_nbytes(img_dim, img_dim),)
+    return (img_dim, img_dim, 3)
 
 
 def scan_png_tree(img_dir):
@@ -71,16 +78,17 @@ def scan_png_tree(img_dir):
 def pack_crops(img_dir, shard_dir, img_dim, *, flow_img_name=None,
                use_mask=True, rows_per_shard=DEFAULT_ROWS_PER_SHARD,
                use_native=None, codec='raw', log=print):
-    """One-time transcode: PNG tree -> raw shard files + index. Returns
-    the crop count.
+    """One-time transcode: PNG tree -> shard files + index. Returns the
+    crop count.
 
     Decoding goes through `decode_crop_batch` (the native decoder when it
     builds, by `use_native`), so packed bytes are what the PNG path would
-    give; missing masks zero-fill. Shard files, `shards_index.pkl` and
+    give; missing masks zero-fill. `codec='yuv420'` stores the rgb stream
+    through `encode_yuv420`. Shard files, `shards_index.pkl` and
     `shards_meta.json` are byte-equal to vpd_tpu's `pack_crops` on the
     same tree.
     """
-    _no_yuv420(codec)
+    rgb_row_shape = _rgb_row_shape(codec, img_dim)
     entries = scan_png_tree(img_dir)
     if not entries:
         raise ValueError('no crops under {}'.format(img_dir))
@@ -89,7 +97,7 @@ def pack_crops(img_dir, shard_dir, img_dim, *, flow_img_name=None,
     index = {}
     shard_rows = []
     img = (img_dim, img_dim, 3)
-    rgb_buf = np.zeros((rows_per_shard,) + img, np.uint8)
+    rgb_buf = np.zeros((rows_per_shard,) + rgb_row_shape, np.uint8)
     flow_buf = (np.zeros((rows_per_shard,) + img, np.uint8)
                 if flow_img_name else None)
     mask_buf = (np.zeros((rows_per_shard,) + img[:2], np.uint8)
@@ -113,6 +121,8 @@ def pack_crops(img_dir, shard_dir, img_dim, *, flow_img_name=None,
             mask_paths=([p + '.mask.png' for _, p in chunk]
                         if use_mask else None),
             use_native=use_native)
+        if codec == 'yuv420':
+            rgb = encode_yuv420(rgb)
         for j, (rel, _) in enumerate(chunk):
             index[rel] = len(shard_rows) * rows_per_shard + fill
             rgb_buf[fill] = rgb[j]
@@ -183,7 +193,8 @@ def write_raw_shards(shard_dir, rel_prefixes, rgb, flow=None,
 
 
 class ShardReader:
-    """Memmap-backed random access to packed raw crop shards.
+    """Memmap-backed random access to packed crop shards (rgb rows are
+    (S, S, 3), or (S*S*3//2,) packed planes in yuv420 shards).
 
     `crop_root`: when given, `fill()` also accepts ABSOLUTE path prefixes
     (as produced by `scan_crop_dir`) and relativizes them against it.
@@ -192,20 +203,21 @@ class ShardReader:
     def __init__(self, shard_dir, crop_root=None):
         with open(os.path.join(shard_dir, META_FILE)) as fp:
             self.meta = json.load(fp)
+        # shards packed before the codec field existed are raw
         self.codec = self.meta.get('codec', 'raw')
-        _no_yuv420(self.codec)
         self.index = load_pickle(os.path.join(shard_dir, INDEX_FILE))
         self.crop_root = (os.path.abspath(crop_root)
                           if crop_root is not None else None)
         s = self.meta['img_dim']
         self.rows_per_shard = self.meta['rows_per_shard']
+        rgb_row_shape = _rgb_row_shape(self.codec, s)
         self._rgb = []
         self._flow = []
         self._mask = []
         for sid, rows in enumerate(self.meta['shard_rows']):
             base = os.path.join(shard_dir, 's{:04d}'.format(sid))
             self._rgb.append(np.memmap(
-                base + '.rgb', np.uint8, 'r', shape=(rows, s, s, 3)))
+                base + '.rgb', np.uint8, 'r', shape=(rows,) + rgb_row_shape))
             if self.meta['flow_img_name']:
                 self._flow.append(np.memmap(
                     base + '.flow', np.uint8, 'r', shape=(rows, s, s, 3)))
@@ -264,10 +276,16 @@ def fill_or_decode(reader, prefixes, img_dim, *, flow_img_name=None,
 
     Drop-in alternative to `decode_crop_batch` over path prefixes; output
     bytes are identical. The request is checked against the shard meta so
-    a flow-variant, size or mask mismatch fails loudly instead of
-    gathering the wrong packed stream. Returns (rgb, flow, mask).
+    a codec, flow-variant, size or mask mismatch fails loudly instead of
+    gathering the wrong packed stream. `codec` is the representation
+    `rgb_out` expects ('raw' rows (S, S, 3), 'yuv420' rows the packed
+    (S*S*3//2,) planes) and must be the shards' own; fallback rows are
+    decoded, then encoded to match. Returns (rgb, flow, mask).
     """
-    _no_yuv420(codec)
+    if codec != reader.codec:
+        raise ValueError(
+            'shards packed with codec "{}", requested "{}": repack with '
+            'tools/pack_crops --codec {}'.format(reader.codec, codec, codec))
     if img_dim != reader.meta['img_dim']:
         raise ValueError('shards packed at img_dim={}, requested {}'.format(
             reader.meta['img_dim'], img_dim))
@@ -280,7 +298,7 @@ def fill_or_decode(reader, prefixes, img_dim, *, flow_img_name=None,
 
     n = len(prefixes)
     if rgb_out is None:
-        rgb_out = np.zeros((n, img_dim, img_dim, 3), np.uint8)
+        rgb_out = np.zeros((n,) + reader._rgb[0].shape[1:], np.uint8)
     missing = reader.fill(prefixes, rgb_out[:n],
                           flow_out[:n] if flow_out is not None else None,
                           mask_out[:n] if mask_out is not None else None)
@@ -293,6 +311,8 @@ def fill_or_decode(reader, prefixes, img_dim, *, flow_img_name=None,
             mask_paths=([prefixes[i] + '.mask.png' for i in missing]
                         if mask_out is not None else None),
             use_native=use_native)
+        if codec == 'yuv420':
+            rgb_t = encode_yuv420(rgb_t)
         rgb_out[missing] = rgb_t
         if flow_out is not None:
             flow_out[missing] = flow_t

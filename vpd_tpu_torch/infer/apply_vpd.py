@@ -15,14 +15,18 @@ one chunk ahead and readback one chunk behind (`core/pipeline`). With
 colour-jitter variants (`jitter` > 0) every variant is built by the plain
 transforms instead, as vpd_tpu builds them without its Pallas kernel.
 
-Not ported yet, and raising NotImplementedError: the yuv420 upload codec
-(ROADMAP A3) and the multi-device fan-out (A11).
+`upload_codec='yuv420'` ships the rgb stream as packed YUV 4:2:0 planes
+(`data/upload_codec.py`, half the bytes): packed on the host, or gathered
+packed from yuv420 shards, and decoded on the card before the preprocess.
+Flow planes ship raw. Not ported yet, and raising NotImplementedError:
+the multi-device fan-out (A11).
 """
 
 import itertools
 import os
 import re
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -33,6 +37,7 @@ from ..data.augment import (batch_color_jitter, eval_transform_batch,
                             flip_batch, normalize_rgb, sample_color_jitter)
 from ..data.crops import decode_crop_batch
 from ..data.shards import fill_or_decode
+from ..data.upload_codec import decode_yuv420, encode_yuv420, packed_nbytes
 from ..models.flax_weights import load_encoder_from_flax, load_motion_from_flax
 from ..ops.preprocess import preprocess_crops, preprocess_orig_and_flip
 from ..train.vpd import fold_in
@@ -41,14 +46,16 @@ from ..train.vpd_loop import build_student
 EXTRACT_BATCH = 512
 
 
-def _not_ported(upload_codec=None, mesh=None):
-    if upload_codec not in (None, 'raw'):
-        raise NotImplementedError(
-            'upload_codec="{}" is not ported yet (ROADMAP A3: the yuv420 '
-            'upload codec)'.format(upload_codec))
+def _not_ported(mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             'the multi-device fan-out is not ported yet (ROADMAP A11)')
+
+
+def _check_codec(upload_codec):
+    if upload_codec not in (None, 'raw', 'yuv420'):
+        raise ValueError('unknown upload_codec "{}"'.format(upload_codec))
+    return upload_codec == 'yuv420'
 
 
 def load_student_dir(model_dir, model_epoch=None, dtype=None, device=None):
@@ -73,16 +80,17 @@ def make_variant_embed(model, config, jitter=0, flip=True,
     float32 variant embeddings.
 
     Inputs are (B, S, S, 3) uint8 tensors on `device` (flow None for RGB
-    models); variants are [orig, jitter x `jitter`, flip, flip-jitter x
-    `jitter`] (the flips only with `flip`). Moves `model` to `device`
-    (CUDA by default). Without jitter, on CUDA the preprocess kernel
-    writes bf16, the kernel's one output type; on the CPU the plain twin
-    writes the encoder's type. Jitter variant j of chunk `chunk_i` draws
+    models); with `upload_codec='yuv420'` rgb is the packed (B, S*S*3//2)
+    planes, decoded first on the device. Variants are [orig, jitter x
+    `jitter`, flip, flip-jitter x `jitter`] (the flips only with `flip`).
+    Moves `model` to `device` (CUDA by default). Without jitter, on CUDA
+    the preprocess kernel writes bf16, the kernel's one output type; on
+    the CPU the plain twin writes the encoder's type. Jitter variant j of chunk `chunk_i` draws
     its factors from `fold_in(seed, chunk_i * jitter + j)`, unless
     `jitter_draws` gives them (`data.augment.sample_color_jitter`'s
     layout, one dict per variant).
     """
-    _not_ported(upload_codec)
+    yuv420 = _check_codec(upload_codec)
     device = resolve_device(device)
     mean, std = config['rgb_mean_std']
     use_flow = config['use_flow']
@@ -95,8 +103,26 @@ def make_variant_embed(model, config, jitter=0, flip=True,
         out_dtype = encoder.compute_dtype
 
     if jitter:
-        return _make_jitter_embed(encoder, mean, std, use_flow, jitter, flip,
-                                  device, seed)
+        fn = _make_jitter_embed(encoder, mean, std, use_flow, jitter, flip,
+                                device, seed)
+    else:
+        fn = _make_kernel_embed(encoder, mean, std, use_flow, flip,
+                                out_dtype)
+    if not yuv420:
+        return fn
+    img_dim = config['img_dim']
+
+    def decode_then(rgb_packed, flow_u8, chunk_i=0, jitter_draws=None):
+        with torch.inference_mode():
+            rgb_u8 = decode_yuv420(rgb_packed, img_dim, img_dim)
+        return fn(rgb_u8, flow_u8, chunk_i, jitter_draws)
+
+    return decode_then
+
+
+def _make_kernel_embed(encoder, mean, std, use_flow, flip, out_dtype):
+    """The path of `make_variant_embed` without jitter: kernel B1 builds
+    the orig (and flipped) variants, the encoder runs once over them."""
 
     @torch.inference_mode()
     def fn(rgb_u8, flow_u8, chunk_i=0, jitter_draws=None):
@@ -209,8 +235,14 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
     the loaded weights. `shard_reader` (`data.shards.ShardReader` built
     with crop_root) replaces PNG decode with a memmap gather for packed
     crops. `seed` seeds the jitter variants' draws.
+
+    `upload_codec='yuv420'` packs RGB on the host (half the bytes) and
+    decodes it on the device; `embed_fn`, if given, must be built with the
+    same codec. Shards packed with `--codec yuv420` are gathered packed
+    and need `upload_codec='yuv420'`.
     """
-    _not_ported(upload_codec, mesh)
+    _not_ported(mesh)
+    yuv420 = _check_codec(upload_codec)
     device = resolve_device(device)
     model, config = (prepared if prepared is not None
                      else load_student_dir(model_dir, model_epoch,
@@ -219,13 +251,19 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
     if use_flow and not flow_img_name:
         raise ValueError('model uses flow; pass flow_img_name')
     img_dim = config['img_dim']
+    shard_codec = 'raw' if shard_reader is None else shard_reader.codec
+    if shard_codec != 'raw' and upload_codec != shard_codec:
+        raise ValueError(
+            'shards are packed with codec "{}"; pass upload_codec="{}" '
+            '(raw pixels cannot be reconstructed from lossy shards)'
+            .format(shard_codec, shard_codec))
     if embed_fn is not None and (jitter or no_flip):
         raise ValueError(
             'embed_fn bakes in its own variant set; passing jitter/no_flip '
             'alongside it would be silently ignored')
     embed = embed_fn if embed_fn is not None else make_variant_embed(
-        model, config, jitter=jitter, flip=not no_flip, device=device,
-        seed=seed)
+        model, config, jitter=jitter, flip=not no_flip,
+        upload_codec=upload_codec, device=device, seed=seed)
     on_cuda = device.type == 'cuda'
     copy_stream = torch.cuda.Stream(device) if on_cuda else None
 
@@ -234,22 +272,29 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
         # async copy is in flight (the caching host allocator holds each
         # block until the copy that read it has finished)
         n = len(chunk)
-        rgb = torch.empty((n, img_dim, img_dim, 3), dtype=torch.uint8,
-                          pin_memory=on_cuda)
-        flow = (torch.empty((n, img_dim, img_dim, 3), dtype=torch.uint8,
-                            pin_memory=on_cuda) if use_flow else None)
+        raw = (n, img_dim, img_dim, 3)
+        rgb = torch.empty((n, packed_nbytes(img_dim, img_dim)) if yuv420
+                          else raw, dtype=torch.uint8, pin_memory=on_cuda)
+        flow = (torch.empty(raw, dtype=torch.uint8, pin_memory=on_cuda)
+                if use_flow else None)
         prefixes = [prefix for _, _, prefix in chunk]
         flow_np = flow.numpy() if flow is not None else None
+        # raw pixels land in the upload buffer, or in a host array that
+        # the packer encodes into it
+        rgb_np = (rgb.numpy() if shard_codec == 'yuv420' or not yuv420
+                  else np.empty(raw, np.uint8))
         if shard_reader is not None:
             fill_or_decode(shard_reader, prefixes, img_dim,
-                           flow_img_name=flow_img_name, rgb_out=rgb.numpy(),
-                           flow_out=flow_np)
+                           flow_img_name=flow_img_name, rgb_out=rgb_np,
+                           flow_out=flow_np, codec=shard_codec)
         else:
             decode_crop_batch(
                 [p + '.png' for p in prefixes], img_dim,
                 flow_paths=(['{}.{}.png'.format(p, flow_img_name)
                              for p in prefixes] if use_flow else None),
-                rgb_out=rgb.numpy(), flow_out=flow_np)
+                rgb_out=rgb_np, flow_out=flow_np)
+        if yuv420 and shard_codec == 'raw':
+            np.copyto(rgb.numpy(), encode_yuv420(rgb_np))
         return rgb, flow
 
     chunk_counter = itertools.count()

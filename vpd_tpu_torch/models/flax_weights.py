@@ -25,6 +25,10 @@ The heads on frozen embeddings (`models/gru.py`, and the proposal model)
 map one member of their stacked weights at a time:
 `load_seq_head_from_flax` / `seq_head_to_flax` and the `proposal` pair.
 
+RAFT (`models/raft.py`, official torch key names) maps through
+`import_torch_raft` / `export_torch_raft`: `load_raft_from_flax` /
+`raft_to_flax`.
+
 `student_params_to_flax` / `student_params_from_flax` (and the `vipe_`
 pair for the teacher) map one tensor per parameter (AdamW's moments, say)
 the same way, to and from flax's params trees: `{'encoder': ...,
@@ -437,3 +441,159 @@ def seq_head_to_flax(model, member=0):
 # proposal trainers hold) maps the same way
 load_proposal_from_flax = load_seq_head_from_flax
 proposal_to_flax = seq_head_to_flax
+
+
+# ---------------------------------------------------------------------------
+# RAFT (`models/raft.py`). Its state_dict keys are the official princeton-vl
+# names, so the flax tree maps through the torch layout: the port's own
+# copies of vpd_tpu's `import_torch_raft` / `export_torch_raft`
+# (`vpd_tpu/models/raft.py:494-611`).
+
+def _torch_conv_to_flax(w):
+    return np.transpose(np.asarray(w), (2, 3, 1, 0))
+
+
+def _torch_bn_to_flax(prefix, sd):
+    params = {'scale': np.asarray(sd[prefix + '.weight']),
+              'bias': np.asarray(sd[prefix + '.bias'])}
+    stats = {'mean': np.asarray(sd[prefix + '.running_mean']),
+             'var': np.asarray(sd[prefix + '.running_var'])}
+    return params, stats
+
+
+def import_torch_raft(sd):
+    """Torch RAFT state_dict ({key: array}, either official layout, with
+    or without DataParallel's `module.`) -> flax `{'params',
+    'batch_stats'}`."""
+    from .raft import is_small_state_dict
+
+    sd = {(k[len('module.'):] if k.startswith('module.') else k): v
+          for k, v in sd.items()}
+    small = is_small_state_dict(sd)
+
+    def conv(prefix):
+        out = {'kernel': _torch_conv_to_flax(sd[prefix + '.weight'])}
+        if prefix + '.bias' in sd:
+            out['bias'] = np.asarray(sd[prefix + '.bias'])
+        return out
+
+    block_convs = ('conv1', 'conv2', 'conv3') if small else (
+        'conv1', 'conv2')
+    params, stats = {}, {}
+    for enc, norm in (('fnet', 'instance'),
+                      ('cnet', 'none' if small else 'batch')):
+        p, s = {'conv1': conv(enc + '.conv1')}, {}
+        if norm == 'batch':
+            p['norm1'], s['norm1'] = _torch_bn_to_flax(enc + '.norm1', sd)
+        for li, stride in ((1, 1), (2, 2), (3, 2)):
+            for bi in range(2):
+                name = 'layer{}_{}'.format(li, bi)
+                tp = '{}.layer{}.{}'.format(enc, li, bi)
+                bp = {c: conv('{}.{}'.format(tp, c)) for c in block_convs}
+                bs = {}
+                if norm == 'batch':
+                    bp['norm1'], bs['norm1'] = _torch_bn_to_flax(
+                        tp + '.norm1', sd)
+                    bp['norm2'], bs['norm2'] = _torch_bn_to_flax(
+                        tp + '.norm2', sd)
+                if bi == 0 and stride != 1:
+                    bp['downsample_conv'] = conv(tp + '.downsample.0')
+                    if norm == 'batch':
+                        bp['norm3'], bs['norm3'] = _torch_bn_to_flax(
+                            tp + '.downsample.1', sd)
+                p[name] = bp
+                if bs:
+                    s[name] = bs
+        p['conv2'] = conv(enc + '.conv2')
+        params[enc] = p
+        if s:
+            stats[enc] = s
+
+    ub = 'update_block.'
+    enc_convs = (('convc1', 'convf1', 'convf2', 'conv') if small
+                 else ('convc1', 'convc2', 'convf1', 'convf2', 'conv'))
+    gru_convs = (('convz', 'convr', 'convq') if small
+                 else ('convz1', 'convr1', 'convq1',
+                       'convz2', 'convr2', 'convq2'))
+    params['update_block'] = {
+        'encoder': {k: conv(ub + 'encoder.' + k) for k in enc_convs},
+        'gru': {k: conv(ub + 'gru.' + k) for k in gru_convs},
+        'flow_head_conv1': conv(ub + 'flow_head.conv1'),
+        'flow_head_conv2': conv(ub + 'flow_head.conv2'),
+    }
+    if not small:
+        params['update_block']['mask_conv1'] = conv(ub + 'mask.0')
+        params['update_block']['mask_conv2'] = conv(ub + 'mask.2')
+    return {'params': params, 'batch_stats': stats}
+
+
+def export_torch_raft(variables):
+    """Flax RAFT `{'params', 'batch_stats'}` -> torch state_dict
+    {official key: ndarray}; the inverse of `import_torch_raft`."""
+    out = {}
+
+    def put_conv(prefix, p):
+        out[prefix + '.weight'] = np.transpose(
+            np.asarray(p['kernel']), (3, 2, 0, 1))
+        if 'bias' in p:
+            out[prefix + '.bias'] = np.asarray(p['bias'])
+
+    def put_bn(prefix, p, s):
+        out[prefix + '.weight'] = np.asarray(p['scale'])
+        out[prefix + '.bias'] = np.asarray(p['bias'])
+        out[prefix + '.running_mean'] = np.asarray(s['mean'])
+        out[prefix + '.running_var'] = np.asarray(s['var'])
+
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    for enc in ('fnet', 'cnet'):
+        p = params[enc]
+        s = stats.get(enc, {})
+        put_conv(enc + '.conv1', p['conv1'])
+        if 'norm1' in p:
+            put_bn(enc + '.norm1', p['norm1'], s['norm1'])
+        for li in (1, 2, 3):
+            for bi in range(2):
+                name = 'layer{}_{}'.format(li, bi)
+                tp = '{}.layer{}.{}'.format(enc, li, bi)
+                bp, bs = p[name], s.get(name, {})
+                for c in ('conv1', 'conv2', 'conv3'):
+                    if c in bp:
+                        put_conv('{}.{}'.format(tp, c), bp[c])
+                for norm_name, torch_name in (
+                        ('norm1', tp + '.norm1'), ('norm2', tp + '.norm2'),
+                        ('norm3', tp + '.downsample.1')):
+                    if norm_name in bp:
+                        put_bn(torch_name, bp[norm_name], bs[norm_name])
+                if 'downsample_conv' in bp:
+                    put_conv(tp + '.downsample.0', bp['downsample_conv'])
+        put_conv(enc + '.conv2', p['conv2'])
+
+    ub = params['update_block']
+    for k, v in ub['encoder'].items():
+        put_conv('update_block.encoder.' + k, v)
+    for k, v in ub['gru'].items():
+        put_conv('update_block.gru.' + k, v)
+    put_conv('update_block.flow_head.conv1', ub['flow_head_conv1'])
+    put_conv('update_block.flow_head.conv2', ub['flow_head_conv2'])
+    if 'mask_conv1' in ub:
+        put_conv('update_block.mask.0', ub['mask_conv1'])
+        put_conv('update_block.mask.2', ub['mask_conv2'])
+    return out
+
+
+@torch.no_grad()
+def load_raft_from_flax(model, variables):
+    """Fill a `models.raft.RAFT` from vpd_tpu's RAFT variables (numpy);
+    every key must match."""
+    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
+                           export_torch_raft(variables).items()})
+    return model
+
+
+@torch.no_grad()
+def raft_to_flax(model):
+    """A `models.raft.RAFT` -> flax `{'params', 'batch_stats'}` of numpy
+    arrays, the variables vpd_tpu's RAFT applies."""
+    return import_torch_raft({k: v.detach().cpu().numpy()
+                              for k, v in model.state_dict().items()})

@@ -6,10 +6,12 @@ Same flags as `python -m vpd_tpu.tools.apply_vpd`, plus `--device`, minus
 (its plain twin on the CPU). Usage:
 
     python -m vpd_tpu_torch.tools.apply_vpd <model_dir> -d fs -o <out_dir>
+        [--crop_shards <shards>] [--upload_codec yuv420]
 """
 
 import argparse
 
+from ..data.upload_codec import CODECS
 from ..infer.apply_vpd import apply_vpd, scan_crop_dir, scan_tennis_crop_dir
 from . import paths
 
@@ -38,8 +40,11 @@ def get_args():
                              'tools/pack_crops); replaces PNG decode with '
                              'a memmap gather')
     parser.add_argument('--upload_codec', type=str, default='raw',
-                        choices=('raw', 'yuv420'),
-                        help='yuv420: not ported yet (ROADMAP A3)')
+                        choices=CODECS,
+                        help='host->device crop encoding: yuv420 packs '
+                             'RGB to half the bytes (lossy chroma) and '
+                             'decodes it on the device; required for '
+                             'shards packed with --codec yuv420')
     parser.add_argument('--data_parallel', action='store_true',
                         help='multi-GPU fan-out: not ported yet '
                              '(ROADMAP A11)')

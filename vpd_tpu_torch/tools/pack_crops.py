@@ -7,13 +7,14 @@ vpd_tpu.tools.pack_crops`, and the same files:
         --out_dir <shards> --dim 128 [--flow_img flow] [--no_mask]
 
 The shards feed `tools/train_vpd --crop_shards` (and `--hbm_cache`) and
-`apply_vpd`'s shard reader. `--codec yuv420` is not ported yet (ROADMAP
-A3, the upload codec) and raises NotImplementedError.
+`apply_vpd`'s shard reader. `--codec yuv420` stores the rgb stream in the
+upload codec's packed planes, for `apply_vpd --upload_codec yuv420` only.
 """
 
 import argparse
 
 from ..data.shards import DEFAULT_ROWS_PER_SHARD, pack_crops
+from ..data.upload_codec import CODECS
 
 
 def get_args():
@@ -27,9 +28,11 @@ def get_args():
                         help='skip <frame>.mask.png streams')
     parser.add_argument('--rows_per_shard', type=int,
                         default=DEFAULT_ROWS_PER_SHARD)
-    parser.add_argument('--codec', default='raw',
-                        choices=('raw', 'yuv420'),
-                        help='yuv420: not ported yet (ROADMAP A3)')
+    parser.add_argument('--codec', default='raw', choices=CODECS,
+                        help='rgb stream encoding: yuv420 stores the '
+                             'upload codec\'s packed planes (half the '
+                             'bytes; extraction with --upload_codec '
+                             'yuv420 only)')
     return parser.parse_args()
 
 
