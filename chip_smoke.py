@@ -120,6 +120,26 @@ line each; any failure raises and exits non-zero:
              --upload_codec yuv420` at the slice phase's width from raw
              and from yuv420 shards (equal embeddings, B1's launches)
              beside the raw codec, crops/s
+  prep       from video to embeddings without JAX: two synthetic 1280x720
+             videos (25 fps, 300 frames each; a textured figure that
+             moves and changes size, boxes missing on some frames and
+             reaching past the edge, masks on both sides of the 0.8
+             threshold; `write_prep_corpus`), `python -m
+             vpd_tpu_torch.tools.extract_square_crops` at its defaults
+             with --parallelism 1 and with the default pool (trees equal
+             file for file; every boxed frame's crop, prev and
+             qualifying mask at 128x128, nothing else; 24 frames a video
+             recomputed here with crop_frame + cv2.resize, exactly),
+             frames/s of each; then compute_flow --model lk, pack_crops
+             --flow_img and apply_vpd with the slice phase's flow
+             student on the card (one row per boxed frame, B1's
+             launches counted as the `prep_chain` path); the native host
+             DTW core built from native/dtw_core.cpp and returned by
+             build_dtw_distance_fn, against the numpy DP on 200 pairs of
+             the recognize phase's fs action windows from two videos
+             (rtol 1e-9 on sequences, 1e-12 on cost matrices), pairs/s
+             of each; recut_fs_video on one segment where ffmpeg with
+             libx264 exists
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
@@ -252,6 +272,14 @@ FLOW_CPU_PAIRS = 2
 FLOW_CPU_ATOL = 1e-3       # f32 on the card (TF32 off) against the CPU
 FLOW_CLI_PAIRS = 512
 FLOW_PNG_EQUAL = 0.999     # PNG values equal to the in-process flow's
+# the data-prep chain: two full-width broadcast-like videos, cut from the
+# hours of a real corpus to 300 frames each
+PREP_VIDEOS, PREP_FRAMES = 2, 300
+PREP_SIZE, PREP_FPS = (1280, 720), 25.
+PREP_DIM = 128             # extract_square_crops' default -d
+PREP_SAMPLE = 24           # frames a video whose crops are recomputed here
+DTW_PAIRS = 200            # native against numpy DP, each step pattern
+DTW_NATIVE_RTOL = 1e-9     # tests/test_dtw_native.py's bar on sequences
 
 
 # the teacher's synthetic mocap corpus, in tools/paths' layout; the people
@@ -396,6 +424,83 @@ def write_mocap_corpus(root, rng, frames=MOCAP_FRAMES,
         store_pickle(os.path.join(base, 'ground_truth_3d_pose.pkl'),
                      poses_3d)
     return n_poses
+
+
+def write_prep_corpus(root, rng, videos=PREP_VIDEOS, frames=PREP_FRAMES,
+                      size=PREP_SIZE, fps=PREP_FPS):
+    """Videos and poses for `tools/extract_square_crops`, in vpd_tpu's
+    layout: `<root>/videos/<video>.mp4` (cv2 mp4v) showing a textured
+    figure that walks from past the left edge to past the right edge,
+    bobbing and changing size, over a textured background; and
+    `<root>/pose/<video>/{boxes.json, mask.json.gz}`. A float (x, y, w,
+    h) box is on most frames (short runs have none, and frames where
+    less than 8 px of the figure shows), some reaching past the frame's
+    edge. Most boxed frames carry 1-3 instance masks (score, int box
+    clipped to the frame, base64 PNG of an ellipse), scores on both
+    sides of the 0.8 threshold and tied at times. Returns (pose_dir,
+    video_dir, {video: {boxed frame: whether a mask qualifies}})."""
+    import cv2
+
+    from vpd_tpu_torch.core.io import encode_png
+    width, height = size
+    pose_root = os.path.join(root, 'pose')
+    video_dir = os.path.join(root, 'videos')
+    os.makedirs(video_dir)
+    expected = {}
+    t = np.arange(frames) / frames
+    for v in range(videos):
+        name = 'prep_video{}'.format(v)
+        background = cv2.resize(
+            rng.integers(0, 256, (max(1, height // 16), max(1, width // 16),
+                                  3), np.uint8), (width, height))
+        texture = rng.integers(0, 256, (48, 24, 3), np.uint8)
+        fig_h = height * (0.25 + 0.1 * (1 + np.sin(2 * np.pi * 3 * t + v)))
+        fig_w = fig_h * 0.45
+        cx = -0.1 * width + 1.2 * width * t
+        cy = height * (0.5 + 0.2 * np.sin(2 * np.pi * 2 * t + v))
+        vw = cv2.VideoWriter(os.path.join(video_dir, name + '.mp4'),
+                             cv2.VideoWriter_fourcc(*'mp4v'), fps,
+                             (width, height))
+        if not vw.isOpened():
+            raise RuntimeError('cv2 VideoWriter failed for ' + name)
+        boxes, masks, boxed = [], [], {}
+        for f in range(frames):
+            x0, y0 = cx[f] - fig_w[f] / 2, cy[f] - fig_h[f] / 2
+            ix, iy = int(round(x0)), int(round(y0))
+            iw, ih = int(round(fig_w[f])), int(round(fig_h[f]))
+            xa, xb = max(ix, 0), min(ix + iw, width)
+            ya, yb = max(iy, 0), min(iy + ih, height)
+            frame = background.copy()
+            if xb > xa and yb > ya:
+                fig = cv2.resize(texture, (iw, ih),
+                                 interpolation=cv2.INTER_NEAREST)
+                frame[ya:yb, xa:xb] = fig[ya - iy:yb - iy, xa - ix:xb - ix]
+            vw.write(frame)
+            if f % 23 in (5, 6, 7) or xb - xa < 8:
+                continue
+            boxes.append([f, [x0 + float(rng.uniform(-2, 2)),
+                              y0 + float(rng.uniform(-2, 2)),
+                              fig_w[f], fig_h[f]]])
+            rows = []
+            if f % 11 != 3:
+                for _ in range(int(rng.integers(1, 4))):
+                    mw, mh = xb - xa, yb - ya
+                    yy, xx = np.mgrid[:mh, :mw]
+                    inside = (((xx - mw / 2) / (mw / 2)) ** 2
+                              + ((yy - mh / 2) / (mh / 2)) ** 2
+                              < rng.uniform(0.5, 1.0))
+                    score = float(rng.choice([0.5, 0.7, 0.85, 0.9, 0.95]))
+                    rows.append([score, [xa, ya, mw, mh],
+                                 encode_png(inside)])
+                masks.append([f, rows])
+            boxed[f] = any(r[0] > 0.8 for r in rows)
+        vw.release()
+        os.makedirs(os.path.join(pose_root, name))
+        with open(os.path.join(pose_root, name, 'boxes.json'), 'w') as fp:
+            json.dump(boxes, fp)
+        store_gz_json(os.path.join(pose_root, name, 'mask.json.gz'), masks)
+        expected[name] = boxed
+    return pose_root, video_dir, expected
 
 
 def card_line():
@@ -2749,6 +2854,327 @@ def phase_flow(card):
     return launches
 
 
+def _extract_cli(pose_dir, video_dir, out_dir, *args):
+    """`python -m vpd_tpu_torch.tools.extract_square_crops` at its
+    defaults; seconds with process start."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'vpd_tpu_torch.tools.extract_square_crops',
+         pose_dir, video_dir, '-o', out_dir, *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError('extract_square_crops {} failed ({}): {}'.format(
+            args, proc.returncode, proc.stderr[-3000:]))
+    return time.perf_counter() - t0
+
+
+def _file_tree(root):
+    """{path relative to root: bytes} of every file under root."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(dirpath, n)
+            with open(path, 'rb') as fp:
+                out[os.path.relpath(path, root)] = fp.read()
+    return out
+
+
+def _check_crop_tree(tree, expected):
+    """The tree holds, for every boxed frame, its crop and prev and, where
+    a mask qualifies, its mask, all PREP_DIM square, and nothing else.
+    Returns the share of mask pixels at 0 or 255 (cv2.resize blends the
+    mask's edge, as in vpd_tpu's tool)."""
+    import cv2
+    want = set()
+    for video, boxed in expected.items():
+        for f, has_mask in boxed.items():
+            want |= {'{}/{}.png'.format(video, f),
+                     '{}/{}.prev.png'.format(video, f)}
+            if has_mask:
+                want.add('{}/{}.mask.png'.format(video, f))
+    if set(tree) != want:
+        raise AssertionError('crop tree: missing {}, unexpected {}'.format(
+            sorted(want - set(tree))[:5], sorted(set(tree) - want)[:5]))
+    extreme = total = 0
+    for rel, data in tree.items():
+        img = cv2.imdecode(np.frombuffer(data, np.uint8),
+                           cv2.IMREAD_UNCHANGED)
+        is_mask = rel.endswith('.mask.png')
+        shape = (PREP_DIM, PREP_DIM) + (() if is_mask else (3,))
+        if img.shape != shape or img.dtype != np.uint8:
+            raise AssertionError('{}: {} {}'.format(rel, img.shape,
+                                                    img.dtype))
+        if is_mask:
+            extreme += int(np.isin(img, (0, 255)).sum())
+            total += img.size
+            if img.min() != 0 or img.max() != 255:
+                raise AssertionError('{}: mask spans {}-{}'.format(
+                    rel, img.min(), img.max()))
+    return extreme / total
+
+
+def _recompute_crops(pose_dir, video_dir, tree, expected, rng):
+    """For PREP_SAMPLE boxed frames a video, the crop, prev and mask as
+    `crop_frame` and cv2.resize make them from the frames cv2 decodes in
+    this process, against the tool's PNGs, exactly. Returns the frames
+    checked."""
+    import cv2
+
+    from vpd_tpu_torch.core.io import load_gz_json
+    from vpd_tpu_torch.tools import extract_square_crops as esc
+    from vpd_tpu_torch.utils.video import crop_frame
+    checked = 0
+    for video, boxed in expected.items():
+        with open(os.path.join(pose_dir, video, 'boxes.json')) as fp:
+            boxes = dict(json.load(fp))
+        masks = dict(load_gz_json(os.path.join(pose_dir, video,
+                                               'mask.json.gz')))
+        sample = set(rng.choice(sorted(boxed), PREP_SAMPLE,
+                                replace=False).tolist())
+        vc = cv2.VideoCapture(os.path.join(video_dir, video + '.mp4'))
+        prev_frame = prev_box = None
+        for f in range(PREP_FRAMES):
+            ok, frame = vc.read()
+            if not ok:
+                raise AssertionError('{}: frame {} does not decode'.format(
+                    video, f))
+            box = boxes.get(f)
+            if f in sample:
+                corners = tuple(int(c) for c in esc._smooth_union(
+                    box, prev_box))
+
+                def made(img):
+                    crop = crop_frame(*corners, img, make_square=True,
+                                      pad_px=esc.PAD_PX,
+                                      pad_frac=esc.PAD_FRAC)
+                    if max(crop.shape[:2]) != PREP_DIM:
+                        crop = cv2.resize(crop, (PREP_DIM, PREP_DIM))
+                    return crop
+
+                want = {'png': made(frame), 'prev.png': made(
+                    frame if prev_frame is None else prev_frame)}
+                canvas = esc._best_mask_canvas(masks.get(f, []),
+                                               frame.shape[:2])
+                if canvas is not None:
+                    want['mask.png'] = made(canvas)
+                for kind, img in want.items():
+                    got = cv2.imdecode(np.frombuffer(tree['{}/{}.{}'.format(
+                        video, f, kind)], np.uint8), cv2.IMREAD_UNCHANGED)
+                    if not np.array_equal(got, img.reshape(got.shape)):
+                        raise AssertionError(
+                            '{}/{}.{} differs from crop_frame + resize'
+                            .format(video, f, kind))
+                checked += 1
+            prev_frame, prev_box = frame, box
+        vc.release()
+    return checked
+
+
+def _prep_chain(tree_dir, expected):
+    """compute_flow (LK, cuda), pack_crops --flow_img and apply_vpd with
+    the slice phase's flow student (cuda) on the extracted tree; the
+    rows checked against the boxed frames. B1's launches counted from 0
+    around apply_vpd."""
+    flow = _flow_cli(tree_dir, 'flow')
+    shards = os.path.join(WORK, 'prep_shards')
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'vpd_tpu_torch.tools.pack_crops', '--img_dir',
+         tree_dir, '--out_dir', shards, '--dim', str(PREP_DIM),
+         '--flow_img', 'flow'], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    pack_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError('pack_crops failed ({}): {}'.format(
+            proc.returncode, proc.stderr[-3000:]))
+    videos, tasks = ap.scan_crop_dir(tree_dir)
+    out = os.path.join(WORK, 'prep_embs')
+    reader = ShardReader(shards, crop_root=tree_dir)
+    # the main path: counts from 0 just before, read just after
+    pre.launches = 0
+    t0 = time.perf_counter()
+    ap.apply_vpd(videos, tasks, os.path.join(WORK, 'student_flow'), out,
+                 flow_img_name='flow', batch_size=BATCH,
+                 shard_reader=reader, log=lambda *a: None)
+    apply_s = time.perf_counter() - t0
+    launches = pre.launches
+    n_chunks = -(-len(tasks) // BATCH)
+    if launches != n_chunks:
+        raise AssertionError('B1 launched {} times on the prep chain, '
+                             'expected {}'.format(launches, n_chunks))
+    embs = _load_embs(out)
+    if sorted(embs) != sorted(expected):
+        raise AssertionError('embedded videos {} != {}'.format(
+            sorted(embs), sorted(expected)))
+    for video, rows in embs.items():
+        if [r[0] for r in rows] != sorted(expected[video]):
+            raise AssertionError('{}: rows are not the boxed frames'.format(
+                video))
+    for video, rows in embs.items():
+        for _, e, _ in rows:
+            if e.shape != (2, EMB) or not np.isfinite(e).all():
+                raise AssertionError('{}: bad row {}'.format(video, e.shape))
+    return {'flow_cli': flow, 'pack_seconds': pack_s,
+            'apply_vpd_seconds': apply_s, 'rows': len(tasks),
+            'apply_vpd_crops_per_s': len(tasks) / apply_s,
+            'b1_launches': launches}, launches
+
+
+def _fs_action_sequences(emb_dir):
+    """The recognize phase's fs rows (variant 0, (T, 32)) over each
+    all.txt action's dilated window, as `_write_fs_corpus` wrote them:
+    [(video, sequence)]."""
+    meta = load_meta_cache('fs')
+    rows = {}
+    seqs = []
+    with open(os.path.join(ACTION_DATA_DIR, 'fs', 'all.txt')) as fp:
+        actions = [line.split()[0] for line in fp if line.strip()]
+    for action in actions:
+        video, start, end = action.split(':')
+        start, end = int(start), int(end)
+        if video not in rows:
+            with open(os.path.join(emb_dir, video + '.emb.pkl'), 'rb') as fp:
+                rows[video] = {f: e[0] for f, e, _ in pickle.load(fp)}
+        fps, mid = meta[video].fps, (start + end) / 2
+        lo = max(0, min(start, int(mid - fps * 2.5)))
+        hi = max(end, int(mid + fps * 0.5))
+        seqs.append((video, np.stack([rows[video][f]
+                                      for f in range(lo, hi)])))
+    return seqs
+
+
+def _native_vs_numpy_dtw(emb_dir, rng):
+    """The native host DTW core, built from native/dtw_core.cpp, against
+    the numpy DP on DTW_PAIRS pairs of fs action sequences for each step
+    pattern: sequences at rtol DTW_NATIVE_RTOL, cost matrices at 1e-12,
+    the same pairs infeasible; pairs/s of each."""
+    from vpd_tpu_torch.ops import dtw as tdtw
+    from vpd_tpu_torch.ops import dtw_native
+    t0 = time.perf_counter()
+    if not dtw_native.available():
+        raise AssertionError('the native DTW core did not build')
+    build_s = time.perf_counter() - t0
+    # pairs of actions from two videos: windows of one video can share
+    # frames, and on a shared row the numpy DP's expanded-form L2 keeps
+    # ~1e-8 of rounding where the native core's direct form gives 0,
+    # which alone exceeds the 1e-9 bar (the cost-matrix bar takes any pair)
+    seqs = _fs_action_sequences(emb_dir)
+    pairs = []
+    while len(pairs) < DTW_PAIRS:
+        i, j = rng.integers(0, len(seqs), 2)
+        if seqs[i][0] != seqs[j][0]:
+            pairs.append((seqs[i][1].astype(np.float64),
+                          seqs[j][1].astype(np.float64)))
+    out = {'build_seconds': build_s, 'pairs': DTW_PAIRS,
+           'mean_len': float(np.mean([len(a) for a, _ in pairs]))}
+    for sp in ('symmetricP2', 'symmetric2'):
+        fns = {'native': tdtw.build_dtw_distance_fn(sp),
+               'numpy': tdtw.build_dtw_distance_fn(sp, prefer_native=False)}
+        for impl, fn in fns.items():
+            if fn.impl != impl:
+                raise AssertionError('build_dtw_distance_fn({}) gave {}, '
+                                     'expected {}'.format(sp, fn.impl, impl))
+        got, rates = {}, {}
+        for impl, fn in fns.items():
+            t0 = time.perf_counter()
+            got[impl] = np.array([fn(a, b) for a, b in pairs])
+            rates[impl] = DTW_PAIRS / (time.perf_counter() - t0)
+        # the numpy DP ran on these cost matrices: the same function
+        from_costs = np.array([dtw_native.dtw_distance_native(
+            pairwise_l2(a, b), sp) for a, b in pairs])
+        dp = got['numpy']
+        fin = np.isfinite(dp)
+        for name, x, rtol in (('sequences', got['native'], DTW_NATIVE_RTOL),
+                              ('costs', from_costs, 1e-12)):
+            if not (np.array_equal(np.isfinite(x), fin)
+                    and np.allclose(x[fin], dp[fin], rtol=rtol, atol=0)):
+                raise AssertionError('native DTW ({}, {}) differs from the '
+                                     'numpy DP'.format(sp, name))
+        out[sp] = {'pairs_per_s': rates, 'infeasible': int((~fin).sum()),
+                   'max_rel_err_sequences': float(np.max(np.abs(
+                       got['native'][fin] / dp[fin] - 1), initial=0))}
+    return out
+
+
+def _recut_with_ffmpeg(video_path):
+    """`recut_fs_video.recut_single` on one 3-second segment of a prep
+    video where this host has ffmpeg with libx264; otherwise what was
+    absent."""
+    ffmpeg = shutil.which('ffmpeg')
+    if ffmpeg is None:
+        return {'ffmpeg': None, 'recut_fs_video': 'not run: no ffmpeg'}
+    encoders = subprocess.run([ffmpeg, '-hide_banner', '-encoders'],
+                              capture_output=True, text=True,
+                              timeout=60).stdout
+    if 'libx264' not in encoders:
+        return {'ffmpeg': ffmpeg,
+                'recut_fs_video': 'not run: ffmpeg has no libx264'}
+    from vpd_tpu_torch.tools import recut_fs_video as recut
+    from vpd_tpu_torch.utils.video import get_metadata
+    out_dir = os.path.join(WORK, 'prep_recut')
+    os.makedirs(out_dir)
+    with contextlib.redirect_stdout(io.StringIO()):
+        recut.recut_single(video_path, [(0, 2)], out_dir)
+    clips = os.listdir(out_dir)
+    want = int(3 * PREP_FPS)
+    if len(clips) != 1 or get_metadata(os.path.join(
+            out_dir, clips[0])).num_frames != want:
+        raise AssertionError('recut_fs_video: {} (expected one clip of {} '
+                             'frames)'.format(clips, want))
+    return {'ffmpeg': ffmpeg, 'recut_fs_video': clips[0]}
+
+
+def phase_prep(card):
+    """From video to embeddings without JAX: extract_square_crops at its
+    defaults over two full-width videos (serial and pooled, equal
+    trees), then compute_flow, pack_crops and apply_vpd on the card; the
+    native host DTW against the numpy DP."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    root = os.path.join(WORK, 'prep')
+    pose_dir, video_dir, expected = write_prep_corpus(root, rng)
+    corpus_s = time.perf_counter() - t0
+    n_frames = PREP_VIDEOS * PREP_FRAMES
+    n_boxed = sum(map(len, expected.values()))
+    trees, rates = {}, {}
+    for name, args in (('serial', ('--parallelism', '1')), ('pooled', ())):
+        out = os.path.join(root, 'crops_' + name)
+        secs = _extract_cli(pose_dir, video_dir, out, *args)
+        rates[name] = {'seconds_with_start': secs,
+                       'frames_per_s': n_frames / secs,
+                       'crops_per_s': n_boxed / secs}
+        trees[name] = _file_tree(out)
+    if trees['serial'] != trees['pooled']:
+        differ = sorted(set(trees['serial']) ^ set(trees['pooled'])) or \
+            [k for k in trees['serial']
+             if trees['serial'][k] != trees['pooled'][k]]
+        raise AssertionError('serial and pooled crop trees differ: {}'
+                             .format(differ[:5]))
+    tree = trees['serial']
+    mask_extreme = _check_crop_tree(tree, expected)
+    checked = _recompute_crops(pose_dir, video_dir, tree, expected, rng)
+    chain, launches = _prep_chain(os.path.join(root, 'crops_serial'),
+                                  expected)
+    chain['crops_per_s'] = n_boxed / (
+        rates['serial']['seconds_with_start']
+        + chain['flow_cli']['seconds_with_start'] + chain['pack_seconds']
+        + chain['apply_vpd_seconds'])
+    result = {'phase': 'prep', 'card': card, 'videos': PREP_VIDEOS,
+              'frames': n_frames, 'size': list(PREP_SIZE),
+              'boxed_frames': n_boxed, 'files': len(tree),
+              'corpus_seconds': corpus_s, 'extract': rates,
+              'trees_equal': True, 'mask_share_0_or_255': mask_extreme,
+              'frames_recomputed': checked, 'chain': chain,
+              'host_dtw': _native_vs_numpy_dtw(
+                  os.path.join(WORK, 'fs_embs'), rng),
+              **_recut_with_ffmpeg(os.path.join(video_dir,
+                                                'prep_video0.mp4'))}
+    shutil.rmtree(root)
+    result['seconds'] = time.perf_counter() - t0
+    emit(result)
+    return launches
+
+
 def main():
     phase_env()
     card = card_line()
@@ -2769,12 +3195,14 @@ def main():
         phase_teacher(card, train)
         phase_heads(card)
         yuv420_launches = phase_flow(card)
+        prep_launches = phase_prep(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # B1's launches on its two paths, each counted from 0 around its runs
-    preprocess['launches'] = slice_launches + yuv420_launches
+    # B1's launches on its three paths, each counted from 0 around its runs
+    preprocess['launches'] = slice_launches + yuv420_launches + prep_launches
     preprocess['launches_by_path'] = {'slice': slice_launches,
-                                      'yuv420_extraction': yuv420_launches}
+                                      'yuv420_extraction': yuv420_launches,
+                                      'prep_chain': prep_launches}
     print(card)
     emit({'kernels': [preprocess, dtw]})
     emit({'ok': True, 'device': {'platform': 'gpu',

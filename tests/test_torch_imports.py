@@ -49,7 +49,12 @@ def test_port_and_chip_smoke_import_no_jax():
                  'infer.apply_vipe', 'tools.train_vipe', 'tools.apply_vipe',
                  'core.schedule', 'models.gru', 'train.classifier',
                  'train.fused_sweep', 'train.proposal', 'tasks.detect',
-                 'tools.detect'):
+                 'tools.detect', 'ops.dtw_native', 'utils.box',
+                 'utils.display', 'utils.video',
+                 'tools.extract_square_crops', 'tools.dummy_2d_features',
+                 'tools.stack_features', 'tools.preprocess_3d_pose',
+                 'tools.view_2d_pose', 'tools.plot_losses',
+                 'tools.recut_fs_video', 'tools.recut_finegym_video'):
         assert 'vpd_tpu_torch.' + name in out['modules']
     assert out['loaded'] == []
 

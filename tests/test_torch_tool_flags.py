@@ -1,0 +1,79 @@
+"""The port's CLI flags against vpd_tpu's, and every port tool's --help.
+
+An AST diff of argparse `add_argument` calls between `vpd_tpu/tools/*.py`
+and `vpd_tpu_torch/tools/*.py` for every tool both packages have: the
+same flags, except the port's `--device` (its entry points run on the
+GPU unless asked for the CPU) and `apply_vpd --preprocess`, which the
+port drops (one preprocess, the CUDA kernel or its plain twin). The
+tools vpd_tpu has and the port does not are its benchmarks and the
+torch import/export pair (ROADMAP queue A).
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_TOOLS = os.path.join(REPO, 'vpd_tpu', 'tools')
+PORT_TOOLS = os.path.join(REPO, 'vpd_tpu_torch', 'tools')
+
+NOT_TOOLS = {'__init__', 'paths'}
+NOT_PORTED = {'import_torch_model', 'export_torch_model'}
+COMMON = [
+    'apply_vipe', 'apply_vpd', 'compute_flow', 'detect', 'dummy_2d_features',
+    'extract_square_crops', 'pack_crops', 'plot_losses', 'preprocess_3d_pose',
+    'recognize', 'recut_finegym_video', 'recut_fs_video', 'stack_features',
+    'train_vipe', 'train_vpd', 'view_2d_pose',
+]
+PORT_ONLY_FLAGS = {'--device'}
+DROPPED_FLAGS = {'apply_vpd': {'--preprocess'}}
+
+
+def _tools(path):
+    return {f[:-3] for f in os.listdir(path)
+            if f.endswith('.py') and f[:-3] not in NOT_TOOLS}
+
+
+def flag_names(path):
+    with open(path) as fp:
+        tree = ast.parse(fp.read())
+    names = set()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == 'add_argument'):
+            names.update(
+                a.value for a in node.args
+                if isinstance(a, ast.Constant) and isinstance(a.value, str))
+    return names
+
+
+def test_the_port_has_every_tool_but_benchmarks_and_torch_io():
+    jax_tools = {t for t in _tools(JAX_TOOLS) if not t.startswith('bench_')}
+    assert _tools(PORT_TOOLS) == set(COMMON)
+    assert jax_tools - set(COMMON) == NOT_PORTED
+    assert len(COMMON) == 16
+
+
+@pytest.mark.parametrize('tool', COMMON)
+def test_port_flags_equal_vpd_tpu(tool):
+    want = flag_names(os.path.join(JAX_TOOLS, tool + '.py'))
+    got = flag_names(os.path.join(PORT_TOOLS, tool + '.py'))
+    assert want, tool
+    assert want - got == DROPPED_FLAGS.get(tool, set()), \
+        '{} lacks vpd_tpu flags {}'.format(tool, sorted(want - got))
+    assert got - want <= PORT_ONLY_FLAGS, \
+        '{} adds flags {}'.format(tool, sorted(got - want - PORT_ONLY_FLAGS))
+
+
+@pytest.mark.parametrize('tool', COMMON)
+def test_port_tool_help(tool):
+    result = subprocess.run(
+        [sys.executable, '-m', 'vpd_tpu_torch.tools.{}'.format(tool),
+         '--help'], capture_output=True, timeout=180, cwd=REPO,
+        env=dict(os.environ, OMP_NUM_THREADS='1'))
+    assert result.returncode == 0, result.stderr.decode()[-2000:]
+    assert b'usage' in result.stdout.lower()

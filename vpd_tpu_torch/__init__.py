@@ -7,7 +7,8 @@ packages to hold one against the other).
 
 Layer map (the ported slices: student feature extraction; DTW
 recognition and retrieval; student training and its input; the teacher;
-the heads on frozen embeddings; optical flow and the upload codec):
+the heads on frozen embeddings; optical flow and the upload codec; the
+data-prep tools from video to crops):
   core/      io + `.emb.pkl` interchange, flax-msgpack checkpoints, pipeline,
              single-readback metrics
   data/      eval transforms and the train augmentation, crop PNG decode
@@ -15,21 +16,26 @@ the heads on frozen embeddings; optical flow and the upload codec):
              pack_crops, training batch sources, prefetch, decode worker
              processes, the device crop cache, the yuv420 upload codec
   datasets/  dense embedding matrices, action windows and splits
-  ops/       hand-written CUDA kernels (csrc/) with their plain twins; DTW;
-             the LK flow pyramid and flow-PNG quantization; the nvcc and
-             g++ builds
+  ops/       hand-written CUDA kernels (csrc/) with their plain twins; DTW
+             (the host DP in numpy and the native C++ core,
+             `dtw_native`); the LK flow pyramid and flow-PNG
+             quantization; the nvcc and g++ builds
   models/    ResNet student, FCNet, RAFT, flax weight mapping,
              torchvision ImageNet state_dicts
   train/     student modules, the train step and the epoch loop
   infer/     batched embedding extraction (.emb.pkl writers)
   tasks/     kNN / retrieval over DTW, the few-shot protocol
-  tools/     CLI entry points
-  utils/     video metadata
+  tools/     CLI entry points, the data-prep tools among them (crop
+             extraction, 2D features, feature stacking, mocap
+             preprocessing, pose overlay, loss plots, recutting)
+  utils/     video metadata, decode, segment cutting and the square
+             crop (`video`), boxes (`box`), the DISPLAY-gated preview
+             (`display`)
 
 Entry points run on the GPU unless the caller passes `device='cpu'`.
+Importing the package does not import torch, so the host-only tools
+(crop extraction and its spawned workers) start without it.
 """
-
-import torch
 
 __version__ = "0.1.0"
 
@@ -40,6 +46,8 @@ def resolve_device(device=None):
     Raises when CUDA is asked for (explicitly or by default) but no GPU is
     present, instead of silently running on the CPU.
     """
+    import torch
+
     device = torch.device('cuda' if device is None else device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(

@@ -21,7 +21,8 @@ each kernel. `ptxas_resources` reads that report into one record a
 kernel.
 
 `build_locked` builds a host (C++) library into the same directory: the
-native PNG decoder (`data/native_loader.py`) over `native/crop_loader.cpp`.
+native PNG decoder (`data/native_loader.py`) over `native/crop_loader.cpp`
+and the host DTW core (`ops/dtw_native.py`) over `native/dtw_core.cpp`.
 """
 
 import ctypes

@@ -5,7 +5,8 @@ package imports nothing of `vpd_tpu`). Two implementations of one
 function:
 
 * the host DP (`dtw_distance`, `build_dtw_distance_fn`): numpy in f64,
-  exact, one pair at a time;
+  exact, one pair at a time, or the same in C++ (`ops/dtw_native.py`)
+  where g++ builds it;
 * `dtw_matrix_reference`: all (query, target) pairs at once in PyTorch,
   one Python loop over DP rows with the pairs as a batch dimension. It is
   the plain twin of kernel B2 (`ops/dtw_kernel.py`, `csrc/dtw.cu`) and
@@ -19,6 +20,8 @@ are normalized by (N + M).
 
 import numpy as np
 import torch
+
+from . import dtw_native
 
 INF = np.inf
 STEP_PATTERNS = ('symmetric2', 'symmetricP2')
@@ -96,15 +99,22 @@ def pairwise_l2(a, b):
 def build_dtw_distance_fn(step_pattern='symmetricP2', prefer_native=True):
     """Sequence-level distance fn (reference util/neighbors.py:9-17).
 
-    Always the numpy DP here: the port has no native host core yet
-    (ROADMAP), so `prefer_native` is accepted for signature parity with
-    vpd_tpu and has no effect.
+    The native C++ core (`ops/dtw_native.py`) where g++ builds it, as in
+    vpd_tpu, else the numpy DP above; both in float64 (the core's L2 is
+    the direct form, so on a row both sequences share it gives 0 where
+    `pairwise_l2`'s expanded form leaves a rounding residue). The
+    function returned says which it is in `impl` ('native' or 'numpy').
     """
-    del prefer_native
+    if prefer_native and dtw_native.available():
+        fn = dtw_native.build_native_dtw_fn(step_pattern)
+        fn.impl = 'native'
+        fn.fork_safe = True  # a host library, no CUDA context
+        return fn
 
     def dtw_fn(a, b):
         return dtw_distance(pairwise_l2(a, b), step_pattern=step_pattern)
 
+    dtw_fn.impl = 'numpy'
     dtw_fn.fork_safe = True  # pure numpy DP, no CUDA context
     return dtw_fn
 
