@@ -46,8 +46,8 @@ line each; any failure raises and exits non-zero:
              into augment (and its stages), fwd + bwd and AdamW, peak
              memory, fwd + bwd TFLOP/s against the bf16 peak, and the
              loss falling on one batch; then `python -m vpd_tpu_torch.tools.train_vpd` end to
-             end on a synthetic fs corpus in raw shards (2 epochs at the
-             default batch of 100, --resume to 3), its checkpoints read
+             end on a synthetic fs corpus in raw shards (1 epoch at the
+             default batch of 100, --resume to 2), its checkpoints read
              back, and `best_epoch` extracted through `apply_vpd`
   cache      the student's training input: a raw-shard corpus of 24,000
              crops with flow and masks (2.75 GB, one virtual epoch)
@@ -57,7 +57,7 @@ line each; any failure raises and exits non-zero:
              byte bound, crops/s) beside the train phase's streamed
              step, and one step of each path on the same rows with cuDNN
              deterministic (loss rel 1e-6, parameters max rel 1e-5); the
-             CLI with --hbm_cache (3 epochs, --resume to 4) beside the
+             CLI with --hbm_cache (2 epochs, --resume to 3) beside the
              streamed CLI's epochs, and one epoch with --num_workers 2;
              `best_epoch` extracted through `apply_vpd` (B1 launches)
              against f32 weights (ROADMAP C2: min row cosine, mean
@@ -68,8 +68,8 @@ line each; any failure raises and exits non-zero:
              with TF32 off): four synthetic mocap families written in
              tools/paths' layout (`write_mocap_corpus`), `python -m
              vpd_tpu_torch.tools.train_vipe --dataset 3d` at vpd_tpu's
-             defaults (FCResNet 2 x 1024, 32-d, batch 100) for 2 epochs
-             and `--resume` to 3 in subprocesses with VPD_VIPE_DATA_DIR
+             defaults (FCResNet 2 x 1024, 32-d, batch 100) for 1 epoch
+             and `--resume` to 2 in subprocesses with VPD_VIPE_DATA_DIR
              set, its loss.json, best_epoch and checkpoints checked; the
              step alone at B = 100 and 4096 on a ring of batches on the
              card (ms, rows/s, peak memory, TFLOP/s beside the float32
@@ -140,6 +140,36 @@ line each; any failure raises and exits non-zero:
              (rtol 1e-9 on sequences, 1e-12 on cost matrices), pairs/s
              of each; recut_fs_video on one segment where ffmpeg with
              libx264 exists
+  effnet     the EfficientNet-b0 student at full width (no hand kernel:
+             cuDNN depthwise and pointwise convolutions; 128x128, 32-d,
+             RGB + flow, motion head): one train step on cuda in float32
+             with TF32 off against the CPU on the same batch, draws and
+             dropout masks (B = 8; loss rel 1e-4, each gradient before
+             AdamW 1e-3 rel plus 1e-6 of the whole gradient's norm, BN
+             statistics rtol 1e-4, parameters within 2.5 x lr, all
+             finite); the bf16 step alone at B = 1024 on batches on the
+             card (ms split into augment, fwd + bwd and AdamW, crops/s,
+             TFLOP/s against the bf16 peak, peak memory, the loss
+             falling on one batch); `train_vpd fs --encoder_arch
+             effnet0` on the train phase's shards (2 epochs, --resume to
+             3, checkpoints read back); its best_epoch through
+             `apply_vpd` on the slice phase's shards (B1's launches
+             counted as the `effnet_extraction` path, held against f32
+             weights by the slice phase's bar); one `train_vpd penn`
+             epoch (in process, cut to 600 + 200 samples from 20,000 +
+             4,000) on synthetic 640x480 JPEG frames with boxes past the
+             edge, and the host's ms a batch of 100
+  torch_io   the reference's torch format both ways: the train phase's
+             ResNet-34 student and the teacher phase's VIPE* run through
+             `export_torch_model` and back through `import_torch_model`
+             (each pair of runs at once), every checkpoint byte-equal
+             but the teacher decoder's head padding, which the
+             reference's per-dataset heads do not carry (held equal
+             with it zeroed); `apply_vpd` on the imported student bit-
+             equal to the original (B1's launches counted as the
+             `imported_extraction` path); `train_vipe --resume` for one
+             epoch from the imported teacher; the effnet student's
+             export refused with vpd_tpu's message
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
@@ -150,6 +180,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import pickle
 import shutil
@@ -161,6 +192,7 @@ import time
 import numpy as np
 import torch
 
+from vpd_tpu_torch.core import checkpoint as tckpt
 from vpd_tpu_torch.core.io import (store_embs_pickle, store_gz_json,
                                    store_pickle)
 from vpd_tpu_torch.core.metrics import fetch_metrics
@@ -185,19 +217,24 @@ from vpd_tpu_torch.ops import flow as tflow
 from vpd_tpu_torch.ops import preprocess as pre
 from vpd_tpu_torch.ops.dtw import dtw_distance, pairwise_l2
 from vpd_tpu_torch.tasks import neighbors as nb
+from vpd_tpu_torch.tools import export_torch_model as export_cli
+from vpd_tpu_torch.tools.import_torch_model import dataset_targets
 from vpd_tpu_torch.tools import pack_crops as pack_cli
 from vpd_tpu_torch.tools import recognize as recognize_cli
 from vpd_tpu_torch.tools import train_vipe as vipe_cli
+from vpd_tpu_torch.tools import train_vpd as train_cli
 from vpd_tpu_torch.models import gru as tgru
 from vpd_tpu_torch.models import raft as traft
-from vpd_tpu_torch.models.fc import set_dropout_draw
+from vpd_tpu_torch.models.fc import FlaxDropout, set_dropout_draw
+from vpd_tpu_torch.models.flax_weights import encoder_to_flax
 from vpd_tpu_torch.tasks import detect as tdet
 from vpd_tpu_torch.train import classifier as tcls
 from vpd_tpu_torch.train import proposal as tprop
 from vpd_tpu_torch.train import vipe as tvipe
 from vpd_tpu_torch.train import vipe_loop as tvloop
 from vpd_tpu_torch.train.fused_sweep import FusedSweepTrainer
-from vpd_tpu_torch.train.vpd import (cache_gather, create_state,
+from vpd_tpu_torch.train.vpd import (apply_train_update, cache_gather,
+                                     create_state,
                                      forward_backward,
                                      make_cached_train_step,
                                      make_train_step, optimizer_step)
@@ -238,13 +275,13 @@ TRAIN_B = 2048             # bench.py's train rung (bench.py:96-117)
 TRAIN_RING = 4             # distinct batches the timed steps cycle over
 TRAIN_WARMUP, TRAIN_STEPS, FIT_STEPS = 3, 10, 10
 CLI_VIDEOS, CLI_FRAMES = 4, 300
-CLI_EPOCHS = 2
+CLI_EPOCHS = 1             # then --resume one more
 CACHE_VIDEOS, CACHE_FRAMES = 40, 600  # 24,000 crops: one virtual epoch
 CACHE_CHECK_ROWS = 512
 CACHE_LOSS_RTOL, CACHE_PARAM_RTOL = 1e-6, 1e-5
-CLI_CACHE_EPOCHS = 3
+CLI_CACHE_EPOCHS = 2       # then --resume one more
 PNG_VIDEOS, PNG_FRAMES = 2, 300
-TEACHER_EPOCHS = 2
+TEACHER_EPOCHS = 1         # then --resume one more
 TEACHER_BATCHES = (100, 4096)
 TEACHER_STEPS = 20
 TEACHER_SAMPLER_BATCHES = 50
@@ -280,6 +317,21 @@ PREP_DIM = 128             # extract_square_crops' default -d
 PREP_SAMPLE = 24           # frames a video whose crops are recomputed here
 DTW_PAIRS = 200            # native against numpy DP, each step pattern
 DTW_NATIVE_RTOL = 1e-9     # tests/test_dtw_native.py's bar on sequences
+# the EfficientNet-b0 student at full width (no hand kernel: cuDNN depthwise
+# and pointwise convolutions); its step's batch leaves room on the card
+EFFNET_ARCH, EFFNET_B = 'effnet0', 1024
+EFFNET_CPU_B = 8           # one step on cuda against the CPU
+EFFNET_CLI_EPOCHS = 2      # then --resume to 3
+EFFNET_LOSS_RTOL = 1e-4    # tests/test_torch_cuda.py's train-step bars
+EFFNET_STATS_RTOL, EFFNET_STATS_ATOL = 1e-4, 1e-6   # BN running statistics
+# each gradient: |g_cuda - g_cpu| <= rtol |g_cpu| + floor |whole gradient|
+EFFNET_GRAD_RTOL, EFFNET_GRAD_FLOOR = 1e-3, 1e-6
+EFFNET_PARAM_ATOL = 2.5    # x lr: Adam's first step is about lr x sign(g)
+# the Penn ablation: 640x480 frames, one CLI epoch cut from the tool's
+# 20,000 + 4,000 samples (each a JPEG decode on the host)
+PENN_SEQS, PENN_FRAMES, PENN_SIZE = 4, 40, (640, 480)
+PENN_TRAIN_LEN, PENN_VAL_LEN = 600, 200
+PENN_TIMED_BATCHES = 5
 
 
 # the teacher's synthetic mocap corpus, in tools/paths' layout; the people
@@ -1301,33 +1353,34 @@ def phase_slice(card):
     return launches
 
 
-def _train_ring(gen):
-    """TRAIN_RING uint8 batches on the card, as the train source gives
+def _train_ring(gen, b=TRAIN_B):
+    """TRAIN_RING uint8 batches of b on the card, as the train source gives
     them: rgb, 3-channel flow (the PNG layout), 0/255 person masks, the
     motion head's 64-d targets and the flips."""
     dev = torch.device('cuda')
     ring = []
     for _ in range(TRAIN_RING):
-        rgb, flow = _crops(gen, TRAIN_B, 3)
-        mask = (torch.rand((TRAIN_B, IMG, IMG), generator=gen, device=dev)
+        rgb, flow = _crops(gen, b, 3)
+        mask = (torch.rand((b, IMG, IMG), generator=gen, device=dev)
                 > 0.5).to(torch.uint8) * 255
         ring.append({'rgb': rgb, 'flow': flow, 'mask': mask,
-                     'emb': torch.randn((TRAIN_B, 2 * EMB), generator=gen,
+                     'emb': torch.randn((b, 2 * EMB), generator=gen,
                                         device=dev),
-                     'flip': torch.rand(TRAIN_B, generator=gen,
+                     'flip': torch.rand(b, generator=gen,
                                         device=dev) < 0.5})
     return ring
 
 
 def _augment_parts(batch, mean_std):
-    """CUDA-event ms of the augmentation's stages on one TRAIN_B batch,
-    each timed alone on its own input (so they need not sum to the
-    whole): the uint8 -> bf16 cast, colour jitter, normalize + mask
-    noise + flow concat, the flip, the resample."""
+    """CUDA-event ms of the augmentation's stages on one batch, each timed
+    alone on its own input (so they need not sum to the whole): the uint8
+    -> bf16 cast, colour jitter, normalize + mask noise + flow concat, the
+    flip, the resample."""
     dt = torch.bfloat16
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     draws = aug.sample_train_augment(gen, torch.Generator().manual_seed(SEED),
-                                     TRAIN_B, IMG, IMG, noise_dtype=dt)
+                                     len(batch['rgb']), IMG, IMG,
+                                     noise_dtype=dt)
     draws['flip'] = batch['flip']
     mean, std = (torch.tensor(v, dtype=dt, device='cuda') for v in mean_std)
     x01 = batch['rgb'].to(dt) / 255.
@@ -1351,11 +1404,11 @@ def _augment_parts(batch, mean_std):
             for name, fn in stages.items()}
 
 
-def _train_step_on_card(card):
-    """The train step at TRAIN_B: timings, memory, FLOP rate, and the
-    loss over FIT_STEPS steps on one batch."""
+def _train_step_on_card(card, arch='resnet34', b=TRAIN_B):
+    """The train step of an `arch` student at batch b: timings, memory,
+    FLOP rate, and the loss over FIT_STEPS steps on one batch."""
     cfg = default_config('fs', EMB, img_dim=IMG, use_flow=True, motion=True,
-                         encoder_arch='resnet34')
+                         encoder_arch=arch)
     torch.manual_seed(SEED)
     model = build_student(cfg, dtype=torch.bfloat16,
                           param_dtype=torch.float32).cuda()
@@ -1363,7 +1416,7 @@ def _train_step_on_card(card):
     state = create_state(model, cfg['learning_rate'])
     step = make_train_step(*cfg['rgb_mean_std'], img_dim=IMG, use_flow=True,
                            use_mask=True, aug_dtype=torch.bfloat16)
-    ring = _train_ring(torch.Generator(device='cuda').manual_seed(SEED))
+    ring = _train_ring(torch.Generator(device='cuda').manual_seed(SEED), b)
     seed = SEED + 1
     t0 = time.perf_counter()
     for i in range(TRAIN_WARMUP):
@@ -1380,7 +1433,8 @@ def _train_step_on_card(card):
         ev[0].record()
         imgs = step.augment(batch, seed, state.step)
         ev[1].record()
-        forward_backward(state, imgs, batch['emb'])
+        forward_backward(state, imgs, batch['emb'], step.dropout_draw(
+            imgs.device, seed, state.step) if state.draws_dropout else None)
         ev[2].record()
         optimizer_step(state)
         ev[3].record()
@@ -1407,16 +1461,16 @@ def _train_step_on_card(card):
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError('the loss does not fall on one batch: {}'
                              .format(losses))
-    return {'batch': TRAIN_B, 'arch': 'resnet34', 'channels': 5,
+    return {'batch': b, 'arch': arch, 'channels': 5,
             'motion': True, 'compute': 'bf16, float32 master weights',
             'augment_dtype': 'bf16', 'warmup_steps': TRAIN_WARMUP,
             'warmup_seconds': warmup_s, 'timed_steps': TRAIN_STEPS,
-            'crops_per_s': TRAIN_B * TRAIN_STEPS / wall,
+            'crops_per_s': b * TRAIN_STEPS / wall,
             'host_ms_per_step': wall / TRAIN_STEPS * 1e3,
             'device_ms_per_step': step_ms, **split,
             'augment_parts_ms': augment_parts,
             'peak_memory_GiB': peak / 2 ** 30,
-            'fwd_gflop_per_crop': fwd_flops / TRAIN_B / 1e9,
+            'fwd_gflop_per_crop': fwd_flops / b / 1e9,
             'fwd_bwd_tflops_per_s': tflops,
             'bf16_peak_share': tflops * 1e12 / BF16_FLOPS_PER_S,
             'bf16_peak_TFLOPs': BF16_FLOPS_PER_S / 1e12, 'card': card,
@@ -1480,10 +1534,11 @@ def phase_train(card):
                                    '--resume'], env)
     with open(os.path.join(save, 'loss.json')) as fp:
         losses = json.load(fp)
-    if [r['epoch'] for r in losses] != [1, 2, 3] or not np.isfinite(
-            [[r['train'], r['val']] for r in losses]).all():
+    if [r['epoch'] for r in losses] != list(range(1, CLI_EPOCHS + 2)) or \
+            not np.isfinite([[r['train'], r['val']] for r in losses]).all():
         raise AssertionError('loss.json: {}'.format(losses))
-    want = ['best_epoch.encoder.ckpt'] + ['epoch0003.{}.ckpt'.format(c) for c
+    last = 'epoch{:04d}'.format(CLI_EPOCHS + 1)
+    want = ['best_epoch.encoder.ckpt'] + ['{}.{}.ckpt'.format(last, c) for c
                                           in ('encoder', 'decoder',
                                               'optimizer')]
     missing = [f for f in want if not os.path.exists(os.path.join(save, f))]
@@ -1978,10 +2033,11 @@ def _teacher_apply(save, root, rng):
 
 
 def phase_teacher(card, train):
-    """The VIPE* teacher: train_vipe at full width on synthetic mocap (2
-    epochs, --resume to 3), the step at B = 100 and 4096, the sampler,
-    apply_vipe on the train corpus' videos, and one train_vpd epoch on the
-    teacher's embeddings (ROADMAP C2 read on that student)."""
+    """The VIPE* teacher: train_vipe at full width on synthetic mocap
+    (TEACHER_EPOCHS, --resume one more), the step at B = 100 and 4096,
+    the sampler, apply_vipe on the train corpus' videos, and one
+    train_vpd epoch on the teacher's embeddings (ROADMAP C2 read on that
+    student)."""
     rng = np.random.default_rng(SEED + 4)
     root = os.path.join(WORK, 'teacher')
     mocap = os.path.join(root, 'vipe')
@@ -3175,6 +3231,460 @@ def phase_prep(card):
     return launches
 
 
+def _effnet_masks(model, b, gen):
+    """Keep bits for each `FlaxDropout` of `model` that draws (stochastic
+    depth (b, 1, 1, 1), the head (b, C)) from a CPU generator, and a
+    `set_dropout_draw` source that hands them out in turn (moved to the
+    asking device)."""
+    shapes = [(b, 1, 1, 1) if m.broadcast_dims else (b, model.encoder.fc
+                                                     .in_features)
+              for m in model.modules()
+              if isinstance(m, FlaxDropout) and m.rate > 0]
+    masks = [torch.rand(shape, generator=gen) < 0.8 for shape in shapes]
+
+    def source():
+        feed = iter(masks)
+        return lambda shape, keep, device: next(feed).to(device)
+    return source
+
+
+def _effnet_step_vs_cpu():
+    """One train step of the effnet0 student at full width in float32 on
+    cuda (TF32 off) against the same step on the CPU: the same weights,
+    uint8 batch, augmentation draws and dropout masks. Holds the loss,
+    every parameter's gradient before AdamW (the norm of the difference
+    over the CPU gradient's norm), the BN running statistics after the
+    step and the updated parameters, all finite."""
+    cfg = default_config('fs', EMB, img_dim=IMG, use_flow=True, motion=True,
+                         encoder_arch=EFFNET_ARCH)
+    lr = cfg['learning_rate']
+    torch.manual_seed(SEED)
+    cpu_model = build_student(cfg, dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    gen = torch.Generator().manual_seed(SEED + 12)
+    b = EFFNET_CPU_B
+    batch = {'rgb': torch.randint(0, 256, (b, IMG, IMG, 3), generator=gen,
+                                  dtype=torch.uint8),
+             'flow': torch.randint(0, 256, (b, IMG, IMG, 3), generator=gen,
+                                   dtype=torch.uint8),
+             'mask': (torch.rand((b, IMG, IMG), generator=gen) > 0.5).to(
+                 torch.uint8) * 255,
+             'emb': torch.randn((b, 2 * EMB), generator=gen),
+             'flip': torch.rand(b, generator=gen) < 0.5}
+    draws = aug.sample_train_augment(gen, torch.Generator().manual_seed(
+        SEED), b, IMG, IMG)
+    draws['flip'] = batch['flip']
+    masks = _effnet_masks(cpu_model, b, gen)
+    mean, std = cfg['rgb_mean_std']
+    losses, grads = {}, {}
+    with _no_tf32():
+        for dev, model in (('cpu', cpu_model), ('cuda', gpu_model)):
+            on = {k: v.to(dev) for k, v in batch.items()}
+            imgs = aug.train_augment_batch(
+                on['rgb'], {k: v.to(dev) if torch.is_tensor(v) else v
+                            for k, v in draws.items()}, mean, std,
+                flow_u8=on['flow'], mask_u8=on['mask'], out_size=IMG)
+            state = create_state(model, lr)
+            losses[dev] = float(forward_backward(state, imgs, on['emb'],
+                                                 masks()))
+            grads[dev] = {n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()}
+            optimizer_step(state)
+    # a project BN's bias has a gradient of 0 but for rounding where its
+    # shift reaches only train-mode BNs downstream (no stochastic depth
+    # drops its branch for some samples): each gradient's bar has a floor
+    # at a share of the whole gradient's norm
+    norms = {n: float(g.norm()) for n, g in grads['cpu'].items()}
+    whole = math.sqrt(sum(v * v for v in norms.values()))
+    diffs = {n: float((grads['cuda'][n] - g).norm())
+             for n, g in grads['cpu'].items()}
+    ratio = {n: diffs[n] / (EFFNET_GRAD_RTOL * norms[n]
+                            + EFFNET_GRAD_FLOOR * whole) for n in norms}
+    worst = max(ratio, key=lambda n: (not math.isfinite(ratio[n]),
+                                      ratio[n]))
+    rel = {n: diffs[n] / max(norms[n], 1e-30) for n in norms}
+    most_rel = max(rel, key=rel.get)
+    gpu_sd = gpu_model.state_dict()
+    param_abs, param_rel, stats_excess = 0., 0., 0.
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in grads['cuda'].values())
+    for name, t in cpu_model.state_dict().items():
+        if name.endswith('num_batches_tracked'):
+            continue
+        got = gpu_sd[name].cpu()
+        finite &= bool(torch.isfinite(got).all() and torch.isfinite(t).all())
+        diff = (got - t).abs()
+        if 'running' in name:  # tests/test_torch_cuda.py's bar
+            stats_excess = max(stats_excess, float(
+                (diff - EFFNET_STATS_ATOL - EFFNET_STATS_RTOL * t.abs())
+                .max()))
+        else:
+            param_abs = max(param_abs, float(diff.max()))
+            param_rel = max(param_rel, float(diff.norm() / (t.norm()
+                                                            + 1e-30)))
+    loss_rel = abs(losses['cuda'] - losses['cpu']) / abs(losses['cpu'])
+    result = {'batch': b, 'loss_cpu': losses['cpu'],
+              'loss_cuda': losses['cuda'], 'loss_rel': loss_rel,
+              'loss_rel_bar': EFFNET_LOSS_RTOL,
+              'grad_rel_whole': math.sqrt(sum(v * v for v in diffs.values()))
+              / whole,
+              'grad_norm_whole': whole, 'grad_worst': worst,
+              'grad_worst_rel': rel[worst],
+              'grad_worst_share_of_bar': ratio[worst],
+              'grad_max_rel': rel[most_rel], 'grad_max_rel_param': most_rel,
+              'grad_max_rel_norm': norms[most_rel],
+              'grads_over_rtol': sum(v > EFFNET_GRAD_RTOL
+                                     for v in rel.values()),
+              'grad_rtol': EFFNET_GRAD_RTOL,
+              'grad_floor_of_whole': EFFNET_GRAD_FLOOR,
+              'bn_stats_rtol': EFFNET_STATS_RTOL,
+              'bn_stats_excess': stats_excess,
+              'param_max_abs': param_abs,
+              'param_max_abs_bar': EFFNET_PARAM_ATOL * lr,
+              'param_max_rel': param_rel, 'all_finite': finite}
+    # a NaN fails every comparison below
+    if not (finite and loss_rel <= EFFNET_LOSS_RTOL
+            and ratio[worst] <= 1
+            and stats_excess <= 0 and param_abs <= EFFNET_PARAM_ATOL * lr):
+        raise AssertionError('effnet step on cuda against the CPU: {}'
+                             .format(result))
+    return result
+
+
+def _effnet_cli(train):
+    """`train_vpd fs --encoder_arch effnet0` on the train phase's raw-shard
+    corpus: EFFNET_CLI_EPOCHS, --resume one more; its checkpoints read
+    back."""
+    save = os.path.join(WORK, 'effnet', 'run')
+    env = dict(os.environ, VPD_SPORTS_DIR=train['sports'])
+    common = ['fs', '--save_dir', save, '--emb_dir', train['emb_dir'],
+              '--crop_shards', train['shard_dir'], '--flow_img', 'flow',
+              '--motion', '--checkpoint_frequency', '1', '--encoder_arch',
+              EFFNET_ARCH]
+    first = _train_cli(common + ['--num_epochs', str(EFFNET_CLI_EPOCHS)],
+                       env)
+    resumed = _train_cli(common + ['--num_epochs',
+                                   str(EFFNET_CLI_EPOCHS + 1), '--resume'],
+                         env)
+    with open(os.path.join(save, 'loss.json')) as fp:
+        losses = json.load(fp)
+    if [r['epoch'] for r in losses] != list(range(
+            1, EFFNET_CLI_EPOCHS + 2)) or not np.isfinite(
+                [[r['train'], r['val']] for r in losses]).all():
+        raise AssertionError('effnet loss.json: {}'.format(losses))
+    # the checkpoints read back: the trees the student maps to, and AdamW's
+    # count after the epochs' 200 batches each
+    model, cfg = ap.load_student_dir(save, model_epoch=EFFNET_CLI_EPOCHS + 1,
+                                     dtype=torch.float32)
+    last = 'epoch{:04d}'.format(EFFNET_CLI_EPOCHS + 1)
+    enc = tckpt.load_component(save, last, 'encoder')
+    got, want = _flat(enc), _flat(encoder_to_flax(model.encoder))
+    if got.keys() != want.keys() or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError('effnet encoder checkpoint does not read back')
+    count = int(tckpt.load_component(save, last, 'optimizer')['0']['count'])
+    if cfg['encoder_arch'] != EFFNET_ARCH or \
+            count != 200 * (EFFNET_CLI_EPOCHS + 1):
+        raise AssertionError('effnet run: arch {}, AdamW count {}'.format(
+            cfg['encoder_arch'], count))
+    epoch_s = first[1] + resumed[1]
+    per_epoch = 100 * (200 + 40)
+    return save, {'batch': 100, 'epochs': len(epoch_s),
+                  'run_seconds': [first[0], resumed[0]],
+                  'epoch_seconds': epoch_s,
+                  'crops_per_s_per_epoch': [per_epoch / s for s in epoch_s],
+                  'losses': [[r['train'], r['val']] for r in losses],
+                  'adamw_count': count}
+
+
+def _effnet_extraction(save):
+    """`best_epoch` of the effnet run through `apply_vpd` on cuda over the
+    slice phase's shards (B1's launches counted from 0 around the run),
+    held against the same weights in float32 with the plain preprocess
+    and TF32 off by the slice phase's bar."""
+    crop_dir = os.path.join(WORK, 'crops')
+    reader = ShardReader(os.path.join(WORK, 'shards'), crop_root=crop_dir)
+    keys = [(v, f) for v in range(VIDEOS) for f in range(FRAMES)]
+    tasks = [(v, f, os.path.join(crop_dir, 'video{}'.format(v), str(f)))
+             for v, f in keys]
+    videos = ['video{}'.format(v) for v in range(VIDEOS)]
+    rgb = np.zeros((len(keys), IMG, IMG, 3), np.uint8)
+    flow = np.zeros_like(rgb)
+    reader.fill([t[2] for t in tasks], rgb, flow)
+    prepared = ap.load_student_dir(save)
+    ap.apply_vpd(videos, tasks[:BATCH + 7], save, os.path.join(
+        WORK, 'effnet_warm'), flow_img_name='flow', batch_size=BATCH,
+        prepared=prepared, shard_reader=reader, log=lambda *a: None)
+    out = os.path.join(WORK, 'effnet_embs')
+    # the main path: counts from 0 just before, read just after
+    pre.launches = 0
+    t0 = time.perf_counter()
+    ap.apply_vpd(videos, tasks, save, out, flow_img_name='flow',
+                 batch_size=BATCH, prepared=prepared, shard_reader=reader,
+                 log=lambda *a: None)
+    secs = time.perf_counter() - t0
+    launches = pre.launches
+    n_chunks = -(-len(tasks) // BATCH)
+    if launches != n_chunks:
+        raise AssertionError('B1 launched {} times on the effnet '
+                             'extraction, expected {}'.format(launches,
+                                                              n_chunks))
+    embs = _load_embs(out)
+    _check_rows(embs, range(FRAMES))
+    _, cfg = prepared
+    ref = _reference(save, rgb, flow, True, *cfg['rgb_mean_std'])
+    cos, matched = _cosines(_stack(embs, keys), ref)
+    if not (cos >= COS_BAR and matched):
+        raise AssertionError('effnet extraction: min cosine {} (bar {}), '
+                             'rows matched {}'.format(cos, COS_BAR, matched))
+    return launches, {'crops': len(tasks), 'batch': BATCH,
+                      'b1_launches': launches,
+                      'min_cosine_vs_f32': cos,
+                      'rows_nearest_own_reference': matched,
+                      'apply_vpd_crops_per_s': len(tasks) / secs}
+
+
+def write_penn_corpus(root, rng, seqs=PENN_SEQS, frames=PENN_FRAMES,
+                      size=PENN_SIZE):
+    """A Penn Action layout: JPEG frames `frames/{seq}/{frame:06d}.jpg` (a
+    textured figure on a noisy ground), `pose_embs.pkl` ((2, EMB) rows, a
+    low-score frame every tenth) and `boxes.json`, boxes reaching past the
+    frame's edges. Returns (penn_dir, frame_dir)."""
+    import cv2
+
+    frame_dir = os.path.join(root, 'frames')
+    w, h = size
+    emb_dict, box_dict = {}, {}
+    for s in range(seqs):
+        seq = '{:04d}'.format(s)
+        os.makedirs(os.path.join(frame_dir, seq))
+        ground = rng.integers(0, 256, (h, w, 3), np.uint8)
+        figure = rng.integers(0, 256, (h // 2, w // 4, 3), np.uint8)
+        embs, boxes = [], []
+        for f in range(frames):
+            x = int(-w // 8 + (w * f) // frames)
+            y = int(rng.integers(-h // 8, h // 2))
+            img = ground.copy()
+            x0, y0 = max(x, 0), max(y, 0)
+            x1, y1 = min(x + w // 4, w), min(y + h // 2, h)
+            img[y0:y1, x0:x1] = figure[y0 - y:y1 - y, x0 - x:x1 - x]
+            cv2.imwrite(os.path.join(frame_dir, seq,
+                                     '{:06d}.jpg'.format(f + 1)), img)
+            boxes.append([x, y, w // 4, h // 2])
+            embs.append((f, 0.3 if f % 10 == 9 else 0.9,
+                         rng.normal(size=(2, EMB)).astype(np.float32)))
+        emb_dict[seq], box_dict[seq] = embs, boxes
+    store_pickle(os.path.join(root, 'pose_embs.pkl'), emb_dict)
+    with open(os.path.join(root, 'boxes.json'), 'w') as fp:
+        json.dump(box_dict, fp)
+    return root, frame_dir
+
+
+def _penn_epoch(card):
+    """One `train_vpd penn` epoch (in this process, the epoch's length cut
+    to PENN_TRAIN_LEN + PENN_VAL_LEN samples) and the host's ms per batch
+    of 100 crops cut from the full frames."""
+    from vpd_tpu_torch.data.penn import PennBatchSource, scan_penn_dir
+
+    rng = np.random.default_rng(SEED + 13)
+    penn_dir, frame_dir = write_penn_corpus(os.path.join(WORK, 'penn'), rng)
+    samples, _ = scan_penn_dir(penn_dir)
+    src = PennBatchSource(samples, frame_dir, IMG, 100, seed=SEED)
+    src.next_batch()
+    t0 = time.perf_counter()
+    for _ in range(PENN_TIMED_BATCHES):
+        batch = src.next_batch()
+    host_ms = (time.perf_counter() - t0) / PENN_TIMED_BATCHES * 1e3
+    if batch['rgb'].shape != (100, IMG, IMG, 3):
+        raise AssertionError('penn batch {}'.format(batch['rgb'].shape))
+
+    save = os.path.join(WORK, 'penn_run')
+    saved = train_cli.TRAIN_LEN, train_cli.VAL_LEN
+    train_cli.TRAIN_LEN, train_cli.VAL_LEN = PENN_TRAIN_LEN, PENN_VAL_LEN
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = train_cli.main(
+                'penn', save, None, 1, 100, 5e-4, IMG, None, False,
+                'resnet34', 5, False, False, None, None, SEED,
+                penn_dir=penn_dir, penn_frame_dir=frame_dir)
+    finally:
+        train_cli.TRAIN_LEN, train_cli.VAL_LEN = saved
+    secs = time.perf_counter() - t0
+    with open(os.path.join(save, 'loss.json')) as fp:
+        losses = json.load(fp)
+    if not np.isfinite([losses[0]['train'], losses[0]['val']]).all() \
+            or trainer.state.step != PENN_TRAIN_LEN // 100:
+        raise AssertionError('penn epoch: {}, {} steps'.format(
+            losses, trainer.state.step))
+    return {'sequences': PENN_SEQS, 'frames': PENN_SEQS * PENN_FRAMES,
+            'frame_size': list(PENN_SIZE), 'samples': len(samples),
+            'batch': 100, 'host_ms_per_batch': host_ms,
+            'epoch_samples': [PENN_TRAIN_LEN, PENN_VAL_LEN],
+            'run_seconds': secs, 'epoch_seconds': trainer.epoch_seconds,
+            'loss': [losses[0]['train'], losses[0]['val']], 'card': card}
+
+
+def phase_effnet(card, train):
+    """The EfficientNet-b0 student: a step on cuda against the CPU, the
+    bf16 step alone at EFFNET_B, the CLI (2 epochs, --resume to 3), its
+    best_epoch through apply_vpd (B1 launches), and a Penn epoch."""
+    t0 = time.perf_counter()
+    result = {'phase': 'effnet', 'card': card,
+              'step_vs_cpu': _effnet_step_vs_cpu(),
+              'step': _train_step_on_card(card, EFFNET_ARCH, EFFNET_B)}
+    save, result['cli'] = _effnet_cli(train)
+    launches, result['extraction'] = _effnet_extraction(save)
+    result['penn'] = _penn_epoch(card)
+    result['seconds'] = time.perf_counter() - t0
+    emit(result)
+    return launches, save
+
+
+def _io_tools(tool, pairs):
+    """`python -m vpd_tpu_torch.tools.<tool> src -o out` for each (src,
+    out) of `pairs`, all at once (host work: a process start each, then
+    file I/O): the seconds until the last ended."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'vpd_tpu_torch.tools.' + tool, src, '-o',
+         out], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for src, out in pairs]
+    errors = []
+    for proc in procs:
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append('{} failed ({}): {}'.format(
+                tool, proc.returncode, err[-3000:]))
+    if errors:
+        raise AssertionError('\n'.join(errors))
+    return time.perf_counter() - t0
+
+
+def _same_but_padding(src, back, fname):
+    """The VIPE decoder's multi-head pads each dataset's head to the widest
+    (`models/fc._MultiHead`); the reference keeps one linear a dataset, so
+    the padded columns (random at init, shrunk by weight decay) do not
+    survive an export and come back zero, in vpd_tpu too. Holds every
+    leaf of `fname` in `back` equal to `src`'s with those columns zeroed;
+    returns how many padded values were nonzero."""
+    name, comp = fname[:-len('.ckpt')].split('.', 1)
+    with open(os.path.join(src, 'config.json')) as fp:
+        dims = [d for _, d in dataset_targets(json.load(fp))]
+    want = _flat(tckpt.load_component(src, name, comp))
+    got = _flat(tckpt.load_component(back, name, comp))
+    dropped = 0
+    for key, arr in want.items():
+        if '_MultiHead_0' in key:
+            arr = want[key] = arr.copy()
+            for i, dim in enumerate(dims):
+                dropped += int(np.count_nonzero(arr[i, ..., dim:]))
+                arr[i, ..., dim:] = 0
+    if got.keys() != want.keys() or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError('{} differs after the round trip'.format(fname))
+    return dropped
+
+
+def phase_torch_io(card, train, effnet_dir):
+    """The reference's torch format both ways: the train phase's ResNet-34
+    student and the teacher phase's VIPE* run exported and imported back
+    (checkpoints byte-equal, the decoder's head padding aside:
+    `_same_but_padding`); apply_vpd on the imported student (B1
+    launches counted) bit-equal to the original's; train_vipe --resume
+    from the imported teacher; the effnet student refused."""
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, 'torch_io')
+    dirs = {'vpd': os.path.join(train['root'], 'run'),
+            'vipe': os.path.join(WORK, 'teacher', 'run')}
+    result = {'phase': 'torch_io', 'card': card}
+    pts = {k: os.path.join(root, k + '_pt') for k in dirs}
+    backs = {k: os.path.join(root, k + '_back') for k in dirs}
+    result['export_seconds_both'] = _io_tools(
+        'export_torch_model', [(dirs[k], pts[k]) for k in dirs])
+    result['import_seconds_both'] = _io_tools(
+        'import_torch_model', [(pts[k], backs[k]) for k in dirs])
+    for kind, src in dirs.items():
+        pt, back = pts[kind], backs[kind]
+        ckpts = sorted(f for f in os.listdir(back) if f.endswith('.ckpt'))
+        equal, padded = [], {}
+        for f in ckpts:
+            with open(os.path.join(src, f), 'rb') as a, \
+                    open(os.path.join(back, f), 'rb') as b:
+                if a.read() == b.read():
+                    equal.append(f)
+                else:
+                    padded[f] = _same_but_padding(src, back, f)
+        result[kind] = {'pt_files': sorted(os.listdir(pt)),
+                        'ckpts_byte_equal': equal,
+                        'ckpts_equal_but_head_padding': padded}
+    if not any('optimizer' in f for f in result['vipe']['ckpts_byte_equal']):
+        raise AssertionError('the teacher round trip carried no optimizer')
+
+    # extraction from the imported student, bit for bit the original's
+    crop_dir = os.path.join(train['sports'], 'fs', 'crops')
+    reader = ShardReader(train['shard_dir'], crop_root=crop_dir)
+    tasks = [(0, f, os.path.join(crop_dir, 'video0', str(f)))
+             for f in range(CLI_FRAMES)]
+    outs = {}
+    for kind in ('original', 'imported'):
+        model_dir = (dirs['vpd'] if kind == 'original'
+                     else os.path.join(root, 'vpd_back'))
+        outs[kind] = os.path.join(root, 'embs_' + kind)
+        if kind == 'imported':  # the main path: counts from 0 around it
+            pre.launches = 0
+        ap.apply_vpd(['video0'], tasks, model_dir, outs[kind],
+                     flow_img_name='flow', shard_reader=reader,
+                     log=lambda *a: None)
+    launches = pre.launches
+    got, want = (_load_embs(outs[k])['video0'] for k in ('imported',
+                                                        'original'))
+    _check_rows({'video0': got}, range(CLI_FRAMES))
+    if not all(np.array_equal(a[1], b[1]) for a, b in zip(got, want)):
+        raise AssertionError('the imported student embeds differently')
+    if launches != -(-CLI_FRAMES // BATCH):
+        raise AssertionError('B1 launched {} times on the imported '
+                             'extraction'.format(launches))
+    result['imported_extraction'] = {'rows': len(got), 'bit_equal': True,
+                                     'b1_launches': launches}
+
+    # the imported teacher resumes training
+    back = os.path.join(root, 'vipe_back')
+    env = dict(os.environ, VPD_VIPE_DATA_DIR=os.path.join(WORK, 'teacher',
+                                                          'vipe'))
+    resume_s, epochs = _train_cli(
+        ['--dataset', '3d', '--save_dir', back, '--checkpoint_frequency',
+         '1', '--render_preview_frequency', '0', '--num_epochs',
+         str(TEACHER_EPOCHS + 2), '--resume'], env, 'train_vipe')
+    with open(os.path.join(back, 'loss.json')) as fp:
+        losses = json.load(fp)
+    if [r['epoch'] for r in losses] != list(range(1, TEACHER_EPOCHS + 3)):
+        raise AssertionError('resumed teacher loss.json: {}'.format(losses))
+    result['teacher_resume'] = {'run_seconds': resume_s,
+                                'epoch_seconds': epochs,
+                                'loss': [losses[-1]['train'],
+                                         losses[-1]['val']]}
+
+    # an effnet student has no reference layout to go to
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            export_cli.main(effnet_dir, os.path.join(root, 'effnet_pt'))
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        raise AssertionError('the effnet student was exported')
+    if not refusal.startswith('only resnet student exports are supported'):
+        raise AssertionError('effnet refusal: {}'.format(refusal))
+    result['effnet_refusal'] = refusal
+    result['seconds'] = time.perf_counter() - t0
+    emit(result)
+    return launches
+
+
 def main():
     phase_env()
     card = card_line()
@@ -3196,13 +3706,17 @@ def main():
         phase_heads(card)
         yuv420_launches = phase_flow(card)
         prep_launches = phase_prep(card)
+        effnet_launches, effnet_dir = phase_effnet(card, train)
+        imported_launches = phase_torch_io(card, train, effnet_dir)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # B1's launches on its three paths, each counted from 0 around its runs
-    preprocess['launches'] = slice_launches + yuv420_launches + prep_launches
-    preprocess['launches_by_path'] = {'slice': slice_launches,
-                                      'yuv420_extraction': yuv420_launches,
-                                      'prep_chain': prep_launches}
+    # B1's launches on its five paths, each counted from 0 around its runs
+    by_path = {'slice': slice_launches, 'yuv420_extraction': yuv420_launches,
+               'prep_chain': prep_launches,
+               'effnet_extraction': effnet_launches,
+               'imported_extraction': imported_launches}
+    preprocess['launches'] = sum(by_path.values())
+    preprocess['launches_by_path'] = by_path
     print(card)
     emit({'kernels': [preprocess, dtw]})
     emit({'ok': True, 'device': {'platform': 'gpu',

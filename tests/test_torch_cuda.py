@@ -54,6 +54,11 @@ card against the CPU with TF32 off (atol 1e-3, the CPU parity bar, after
 reference, the flow quantization with median subtraction against the
 numpy `flow_to_img`, and no host sync inside one RAFT batch (bf16, the
 quantization included).
+
+The EfficientNet student (no hand kernel: cuDNN depthwise and pointwise
+convolutions): eval forward and one train step in float32 on cuda against
+the CPU with TF32 off, on the same dropout masks (the train-step bars
+above), and the bf16 step without a host sync.
 """
 
 import copy
@@ -962,3 +967,99 @@ def test_raft_batch_makes_no_host_sync(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode('default')
     assert out.dtype == torch.uint8 and out.shape == (4, 128, 128, 2)
+
+
+def _fed_masks(rng, b, model):
+    """One keep-bit tensor a `FlaxDropout` of `model` (the shape it asks
+    for at batch b: (b, 1, 1, 1) for stochastic depth, (b, C) at the
+    head), as a `set_dropout_draw` source that hands them out in turn."""
+    shapes = [(b, 1, 1, 1) if m.broadcast_dims else (b, 1280)
+              for m in model.modules()
+              if isinstance(m, FlaxDropout) and m.rate > 0]
+    masks = [torch.from_numpy(rng.random(s) < 0.8) for s in shapes]
+
+    def source():
+        feed = iter(masks)
+        return lambda shape, keep, device: next(feed).to(device)
+    return source
+
+
+@pytest.mark.cuda
+def test_effnet_step_and_eval_on_card_match_cpu(cuda_device):
+    """An effnet0 student (RGB + flow, motion head) in float32 with TF32
+    off: eval forward at atol 1e-4, one train step on the same batch and
+    dropout masks at the train-step bars above; then the bf16 step over
+    float32 masters, channels_last, makes no host sync after its first
+    and lowers the loss on one batch."""
+    lr, emb = 1e-3, 8
+    cfg = default_config('fs', emb, img_dim=S, use_flow=True, motion=True,
+                         encoder_arch='effnet0')
+    torch.manual_seed(0)
+    cpu_model = build_student(cfg, dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(4, 5, S, S)).astype(np.float32))
+    emb_t = torch.from_numpy(rng.normal(size=(4, 2 * emb))
+                             .astype(np.float32))
+    masks = _fed_masks(rng, 4, cpu_model)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = cpu_model.eval().encoder(x)
+            got = gpu_model.eval().encoder(x.to(cuda_device)).cpu()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
+        imgs = x.permute(0, 2, 3, 1)
+        losses, grads = [], []
+        for model, dev in ((cpu_model, 'cpu'), (gpu_model, cuda_device)):
+            state = tvpd.create_state(model, lr)
+            losses.append(float(tvpd.forward_backward(
+                state, imgs.to(dev), emb_t.to(dev), masks())))
+            grads.append({n: p.grad.cpu().clone()
+                          for n, p in model.named_parameters()})
+            tvpd.optimizer_step(state)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    # Adam's first step moves a parameter by about lr whatever its
+    # gradient: the gradients before it are what the backward is held to.
+    # A project BN's bias has a gradient of 0 but for rounding where its
+    # shift reaches only train-mode BNs downstream (no stochastic depth
+    # drops its branch for some samples): the bar has a floor at a share
+    # of the whole gradient's norm.
+    whole = torch.stack([g.norm() for g in grads[0].values()]).norm()
+    for name, want in grads[0].items():
+        got = grads[1][name]
+        assert torch.isfinite(got).all(), name
+        assert (got - want).norm() <= 1e-3 * want.norm() + 1e-6 * whole, name
+    gpu_sd = gpu_model.state_dict()
+    for name, t in cpu_model.state_dict().items():
+        got = gpu_sd[name].cpu()
+        if 'running' in name:
+            np.testing.assert_allclose(got.numpy(), t.numpy(), rtol=1e-4,
+                                       atol=1e-6, err_msg=name)
+        elif not name.endswith('num_batches_tracked'):
+            np.testing.assert_allclose(got.numpy(), t.numpy(),
+                                       atol=2.5 * lr, err_msg=name)
+
+    model = build_student(cfg, dtype=torch.bfloat16,
+                          param_dtype=torch.float32).to(cuda_device)
+    model.to(memory_format=torch.channels_last)
+    state = tvpd.create_state(model, lr)
+    step = tvpd.make_train_step(*cfg['rgb_mean_std'], img_dim=S,
+                                use_flow=True, aug_dtype=torch.bfloat16)
+    batch = {k: v.to(cuda_device) for k, v in _train_batch(
+        np.random.default_rng(1), 16, S, emb).items()}
+    losses = [step(state, batch, 0)['emb_loss_sum']]
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(7):
+            losses.append(step(state, batch, 0)['emb_loss_sum'])
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    losses = torch.stack(losses).tolist()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert all(p.dtype == torch.float32 for p in model.parameters())

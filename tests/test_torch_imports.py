@@ -54,7 +54,9 @@ def test_port_and_chip_smoke_import_no_jax():
                  'tools.extract_square_crops', 'tools.dummy_2d_features',
                  'tools.stack_features', 'tools.preprocess_3d_pose',
                  'tools.view_2d_pose', 'tools.plot_losses',
-                 'tools.recut_fs_video', 'tools.recut_finegym_video'):
+                 'tools.recut_fs_video', 'tools.recut_finegym_video',
+                 'models.efficientnet', 'data.penn',
+                 'tools.import_torch_model', 'tools.export_torch_model'):
         assert 'vpd_tpu_torch.' + name in out['modules']
     assert out['loaded'] == []
 

@@ -5,8 +5,8 @@ and `vpd_tpu_torch/tools/*.py` for every tool both packages have: the
 same flags, except the port's `--device` (its entry points run on the
 GPU unless asked for the CPU) and `apply_vpd --preprocess`, which the
 port drops (one preprocess, the CUDA kernel or its plain twin). The
-tools vpd_tpu has and the port does not are its benchmarks and the
-torch import/export pair (ROADMAP queue A).
+only tools vpd_tpu has and the port does not are its benchmarks
+(`bench_*`, JAX measurements the port does not carry over).
 """
 
 import ast
@@ -21,12 +21,13 @@ JAX_TOOLS = os.path.join(REPO, 'vpd_tpu', 'tools')
 PORT_TOOLS = os.path.join(REPO, 'vpd_tpu_torch', 'tools')
 
 NOT_TOOLS = {'__init__', 'paths'}
-NOT_PORTED = {'import_torch_model', 'export_torch_model'}
+NOT_PORTED = set()
 COMMON = [
     'apply_vipe', 'apply_vpd', 'compute_flow', 'detect', 'dummy_2d_features',
-    'extract_square_crops', 'pack_crops', 'plot_losses', 'preprocess_3d_pose',
-    'recognize', 'recut_finegym_video', 'recut_fs_video', 'stack_features',
-    'train_vipe', 'train_vpd', 'view_2d_pose',
+    'export_torch_model', 'extract_square_crops', 'import_torch_model',
+    'pack_crops', 'plot_losses', 'preprocess_3d_pose', 'recognize',
+    'recut_finegym_video', 'recut_fs_video', 'stack_features', 'train_vipe',
+    'train_vpd', 'view_2d_pose',
 ]
 PORT_ONLY_FLAGS = {'--device'}
 DROPPED_FLAGS = {'apply_vpd': {'--preprocess'}}
@@ -51,11 +52,11 @@ def flag_names(path):
     return names
 
 
-def test_the_port_has_every_tool_but_benchmarks_and_torch_io():
+def test_the_port_has_every_tool_but_benchmarks():
     jax_tools = {t for t in _tools(JAX_TOOLS) if not t.startswith('bench_')}
     assert _tools(PORT_TOOLS) == set(COMMON)
     assert jax_tools - set(COMMON) == NOT_PORTED
-    assert len(COMMON) == 16
+    assert len(COMMON) == 18
 
 
 @pytest.mark.parametrize('tool', COMMON)

@@ -13,9 +13,9 @@
   `scan_emb_dir` and `train_val_split` give vpd_tpu's samples.
 - Checkpoints in both directions, optimizer state included; the files
   round-trip byte-equal.
-- The CLI on the CPU: two epochs, then --resume to three; every flag that
-  is not ported (and pack_crops' yuv420 codec) raises NotImplementedError
-  naming its ROADMAP item.
+- The CLI on the CPU: two epochs, then --resume to three; the flags of
+  ROADMAP A10 (the penn dataset, effnet students) and pack_crops' yuv420
+  codec (A3) behave as vpd_tpu's.
 """
 
 import json
@@ -564,8 +564,10 @@ def test_cli_flags_match_vpd_tpu(monkeypatch):
     ({'encoder_arch': 'effnet-b0'}, 'A10'),
     ({'codec': 'yuv420'}, 'A3')])
 def test_cli_unported_flags_raise(corpus, tmp_path, kw, item):
-    """train_vpd's flags of A10 raise. pack_crops --codec yuv420 (A3) is
-    ported: its shards are byte-equal to vpd_tpu's."""
+    """The flags of A10 and A3, once not ported, now behave as vpd_tpu's:
+    penn without --penn_dir refuses with its assertion, an effnet student
+    is built and configured (its training is tests/test_torch_effnet.py's),
+    and pack_crops --codec yuv420 writes shards byte-equal to vpd_tpu's."""
     emb_dir, crop_dir = corpus
     if 'codec' in kw:
         mine, ref = str(tmp_path / 's'), str(tmp_path / 'ref')
@@ -580,8 +582,17 @@ def test_cli_unported_flags_raise(corpus, tmp_path, kw, item):
                     open(os.path.join(ref, name), 'rb') as b:
                 assert a.read() == b.read(), name
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP ' + item):
-        tcli.main(**_cli_kwargs(emb_dir, str(tmp_path / 'x'), **kw))
+    args = _cli_kwargs(emb_dir, str(tmp_path / 'x'), **kw)
+    if kw.get('dataset') == 'penn':
+        with pytest.raises(AssertionError, match='penn requires --penn_dir'):
+            tcli.main(**args)
+        with pytest.raises(AssertionError, match='penn requires --penn_dir'):
+            jcli.main(**{k: v for k, v in args.items() if k != 'device'})
+        return
+    trainer = tcli.main(**{**args, 'num_epochs': 0})
+    assert type(trainer.model.encoder).__name__ == 'EfficientNet'
+    with open(os.path.join(str(tmp_path / 'x'), 'config.json')) as fp:
+        assert json.load(fp)['encoder_arch'] == 'effnet-b0'
 
 
 def test_cli_needs_a_gpu_unless_told_cpu(corpus, tmp_path, monkeypatch):

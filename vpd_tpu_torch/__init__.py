@@ -6,28 +6,32 @@ numpy only: never jax, flax or anything of `vpd_tpu` (tests import both
 packages to hold one against the other).
 
 Layer map (the ported slices: student feature extraction; DTW
-recognition and retrieval; student training and its input; the teacher;
-the heads on frozen embeddings; optical flow and the upload codec; the
-data-prep tools from video to crops):
+recognition and retrieval; student training and its input, EfficientNet
+students and the Penn ablation; the teacher; the heads on frozen
+embeddings; optical flow and the upload codec; the data-prep tools from
+video to crops; the reference's torch checkpoints both ways):
   core/      io + `.emb.pkl` interchange, flax-msgpack checkpoints, pipeline,
              single-readback metrics
   data/      eval transforms and the train augmentation, crop PNG decode
              (native C++ decoder, cv2, PIL), packed shards and
              pack_crops, training batch sources, prefetch, decode worker
-             processes, the device crop cache, the yuv420 upload codec
+             processes, the device crop cache, the yuv420 upload codec,
+             Penn Action crops cut from full frames
   datasets/  dense embedding matrices, action windows and splits
   ops/       hand-written CUDA kernels (csrc/) with their plain twins; DTW
              (the host DP in numpy and the native C++ core,
              `dtw_native`); the LK flow pyramid and flow-PNG
              quantization; the nvcc and g++ builds
-  models/    ResNet student, FCNet, RAFT, flax weight mapping,
-             torchvision ImageNet state_dicts
+  models/    ResNet and EfficientNet students, FCNet, RAFT, flax weight
+             mapping, the reference's torch state_dicts (ImageNet
+             init, import and export)
   train/     student modules, the train step and the epoch loop
   infer/     batched embedding extraction (.emb.pkl writers)
   tasks/     kNN / retrieval over DTW, the few-shot protocol
   tools/     CLI entry points, the data-prep tools among them (crop
              extraction, 2D features, feature stacking, mocap
-             preprocessing, pose overlay, loss plots, recutting)
+             preprocessing, pose overlay, loss plots, recutting), and
+             torch checkpoint import and export
   utils/     video metadata, decode, segment cutting and the square
              crop (`video`), boxes (`box`), the DISPLAY-gated preview
              (`display`)

@@ -59,8 +59,11 @@ def _check_codec(upload_codec):
 
 
 def load_student_dir(model_dir, model_epoch=None, dtype=None, device=None):
-    """(model, config) of a student dir written by either package, in eval
-    mode on `device` (CUDA by default)."""
+    """(model, config) of a student dir written by either package (or
+    imported from the reference), in eval mode on `device` (CUDA by
+    default). A motion head loads where its checkpoint is there; only the
+    encoder embeds, and a dir exported to the reference and imported back
+    has none, as vpd_tpu's loader reads none."""
     device = resolve_device(device)
     config = load_json(os.path.join(model_dir, 'config.json'))
     model = build_student(config, dtype=dtype)
@@ -68,7 +71,8 @@ def load_student_dir(model_dir, model_epoch=None, dtype=None, device=None):
             else 'epoch{:04d}'.format(model_epoch))
     load_encoder_from_flax(model.encoder, ckpt.load_component(
         model_dir, name, 'encoder'))
-    if model.motion is not None:
+    if model.motion is not None and os.path.exists(
+            ckpt.component_path(model_dir, name, 'decoder')):
         load_motion_from_flax(model.motion, ckpt.load_component(
             model_dir, name, 'decoder'))
     return model.to(device).eval(), config

@@ -37,16 +37,21 @@ def _dense(in_dim, out_dim):
 class FlaxDropout(nn.Module):
     """flax's `nn.Dropout`: in train mode each element is kept with
     probability 1 - rate and scaled by 1 / (1 - rate), else zeroed; eval
-    mode and rate 0 pass the input through.
+    mode and rate 0 pass the input through. Along `broadcast_dims` one
+    keep bit serves every element (flax's `broadcast_dims`; (1, 2, 3) on
+    an (N, C, H, W) input keeps or drops each sample whole, stochastic
+    depth).
 
-    The keep mask is `draw(shape, keep_prob, device)`, set with
-    `set_dropout_draw` (the train step's seeded generator; tests feed
-    masks): train mode at a rate above 0 without one raises.
+    The keep mask is `draw(shape, keep_prob, device)`, of the input's
+    shape with `broadcast_dims` set to 1, set with `set_dropout_draw`
+    (the train step's seeded generator; tests feed masks): train mode at
+    a rate above 0 without one raises.
     """
 
-    def __init__(self, rate):
+    def __init__(self, rate, broadcast_dims=()):
         super().__init__()
         self.rate = rate
+        self.broadcast_dims = tuple(broadcast_dims)
         self.draw = None
 
     def forward(self, x):
@@ -58,7 +63,9 @@ class FlaxDropout(nn.Module):
         if self.draw is None:
             raise RuntimeError('FlaxDropout in train mode needs a mask '
                                'source: set_dropout_draw(model, draw)')
-        mask = self.draw(x.shape, keep, x.device)
+        shape = tuple(1 if d in self.broadcast_dims else n
+                      for d, n in enumerate(x.shape))
+        mask = self.draw(shape, keep, x.device)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

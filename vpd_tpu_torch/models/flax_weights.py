@@ -7,6 +7,12 @@ arrays under flax's own module names (creation order):
   BasicBlock  Conv_0, BatchNorm_0, Conv_1, bn_last[, Conv_2, BatchNorm_1]
   Bottleneck  Conv_0, BatchNorm_0, Conv_1, BatchNorm_1, Conv_2, bn_last
               [, Conv_3, BatchNorm_2]
+  EfficientNet  Conv_0, BatchNorm_0 (stem), MBConv_i (numbered across
+              stages), Conv_1, BatchNorm_1 (head), Dense_0
+  MBConv      [Conv_0 (expand),] depthwise, SE reduce, SE expand (with
+              biases), project, then [BatchNorm_0 (expand),] depthwise and
+              project BNs, each numbered from 0: Conv_0..4 and
+              BatchNorm_0..2, or Conv_0..3 and BatchNorm_0..1 at expand 1
   MotionHead  FCNet_0/Dense_k
   VIPEModel   encoder: FCResNet; decoder: FCPoseDecoder | FCResNetPoseDecoder
   FCResNet    Dense_0 (stem), FcResidualBlock_i, Dense_1 (out)
@@ -14,7 +20,8 @@ arrays under flax's own module names (creation order):
   FCPoseDecoder    FCNet_0/Dense_k, _MultiHead_0
   FCResNetPoseDecoder  FCResNet_0, _MultiHead_0
 
-Layouts: conv kernel (kh, kw, I, O) <-> weight (O, I, kh, kw); dense
+Layouts: conv kernel (kh, kw, I, O) <-> weight (O, I, kh, kw) (a
+depthwise kernel (kh, kw, 1, C) <-> (C, 1, kh, kw)); dense
 kernel (I, O) <-> weight (O, I); BN scale/bias <-> weight/bias and
 batch_stats mean/var <-> running_mean/running_var; the multi-head kernel
 (k, h, d) and bias (k, d) keep their shapes. Both directions check that
@@ -39,6 +46,7 @@ teacher.
 import numpy as np
 import torch
 
+from .efficientnet import EfficientNet
 from .fc import FCResNet
 from .resnet import BasicBlock, Bottleneck
 
@@ -59,6 +67,10 @@ _LEAVES = {
     'conv': [('weight', 'params', 'kernel',
               lambda a: a.transpose(3, 2, 0, 1),
               lambda t: t.permute(2, 3, 1, 0))],
+    'conv_bias': [('weight', 'params', 'kernel',
+                   lambda a: a.transpose(3, 2, 0, 1),
+                   lambda t: t.permute(2, 3, 1, 0)),
+                  ('bias', 'params', 'bias', None, None)],
     'dense': [('weight', 'params', 'kernel', lambda a: a.T,
                lambda t: t.T),
               ('bias', 'params', 'bias', None, None)],
@@ -71,8 +83,30 @@ _LEAVES = {
 }
 
 
+def _effnet_entries(model):
+    entries = [('stem', ('Conv_0',), 'conv'),
+               ('stem_bn', ('BatchNorm_0',), 'bn')]
+    for i, block in enumerate(model.blocks):
+        convs = [('depthwise', 'conv'), ('se_reduce', 'conv_bias'),
+                 ('se_expand', 'conv_bias'), ('project', 'conv')]
+        bns = ['depthwise_bn', 'project_bn']
+        if block.expand is not None:
+            convs.insert(0, ('expand', 'conv'))
+            bns.insert(0, 'expand_bn')
+        prefix, flax_block = 'blocks.{}.'.format(i), 'MBConv_{}'.format(i)
+        entries += [(prefix + t, (flax_block, 'Conv_{}'.format(k)), kind)
+                    for k, (t, kind) in enumerate(convs)]
+        entries += [(prefix + t, (flax_block, 'BatchNorm_{}'.format(k)), 'bn')
+                    for k, t in enumerate(bns)]
+    return entries + [('head', ('Conv_1',), 'conv'),
+                      ('head_bn', ('BatchNorm_1',), 'bn'),
+                      ('fc', ('Dense_0',), 'dense')]
+
+
 def _encoder_entries(model):
     """(torch module path, flax path, kind) in flax creation order."""
+    if isinstance(model, EfficientNet):
+        return _effnet_entries(model)
     entries = [('conv1', ('Conv_0',), 'conv'), ('bn1', ('BatchNorm_0',), 'bn')]
     blocks = [('layer{}.{}.'.format(s, j), block)
               for s in range(1, 5)
@@ -190,12 +224,14 @@ def _export(module, entries):
 
 
 def load_encoder_from_flax(model, variables):
-    """Fill a `ResNet` from flax `{'params', 'batch_stats'}` (in place)."""
+    """Fill a `ResNet` or `EfficientNet` from flax `{'params',
+    'batch_stats'}` (in place)."""
     return _load(model, _encoder_entries(model), variables)
 
 
 def encoder_to_flax(model):
-    """`ResNet` -> flax `{'params', 'batch_stats'}` of float32 arrays."""
+    """`ResNet` or `EfficientNet` -> flax `{'params', 'batch_stats'}` of
+    float32 arrays."""
     return _export(model, _encoder_entries(model))
 
 

@@ -15,7 +15,8 @@ master parameters and BN statistics and computes in bf16, as flax's
 input and kernel to the compute dtype, and BatchNorm computes its
 statistics and affine in float32 and returns the compute dtype.
 
-BatchNorm follows flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`, not
+BatchNorm follows flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` (the
+defaults of `FlaxBatchNorm2d`; EfficientNet passes 0.99 and 1e-3), not
 torch's: in train mode it normalizes with the biased batch variance and
 updates `running = 0.9 * running + (1 - 0.9) * stat` with the biased
 variance too (torch would fold in the unbiased one). Eval uses the stored
@@ -49,8 +50,10 @@ class _FlaxBatchNorm:
     master parameters) comes back in its own dtype.
     """
 
-    def __init__(self, channels):
-        super().__init__(channels, eps=1e-5, momentum=1 - FLAX_BN_MOMENTUM)
+    def __init__(self, channels, eps=1e-5, momentum=FLAX_BN_MOMENTUM):
+        """`momentum` is flax's (the share of the running statistics
+        kept), not torch's."""
+        super().__init__(channels, eps=eps, momentum=1 - momentum)
 
     def forward(self, x):
         if not self.training:
@@ -80,11 +83,12 @@ class FlaxBatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
 
 
 class CastConv2d(nn.Conv2d):
-    """`nn.Conv2d` whose kernel is cast to the input's dtype at each call
-    (float32 master weights, bf16 compute)."""
+    """`nn.Conv2d` whose kernel (and bias) are cast to the input's dtype at
+    each call (float32 master weights, bf16 compute)."""
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def _bn(channels):

@@ -14,15 +14,21 @@ shards (`--crop_shards`, written by `tools/pack_crops`). `--hbm_cache`
 (or `--hbm_cache_sharded`, the same on one GPU) stages the shards in
 device memory once and trains on index batches gathered there.
 `--num_workers N` decodes in N spawned worker processes (N // 2 for
-validation). `--pretrained --init_weights <torchvision .pth>` starts the
-backbone from ImageNet weights. Not ported yet, and raising
-NotImplementedError: the penn ablation and EfficientNet students (ROADMAP
-A10).
+validation). `--pretrained --init_weights <torchvision .pth>` starts a
+ResNet backbone from ImageNet weights; `--encoder_arch effnet0`..`effnet7`
+trains an EfficientNet student (from random init). The `penn` ablation
+cuts its crops on the fly from Penn Action's full frames:
+
+    python -m vpd_tpu_torch.tools.train_vpd penn --save_dir <dir> \
+        --penn_dir <dir of pose_embs.pkl + boxes.json> \
+        [--penn_frame_dir <frames>/<seq>/<frame:06d>.jpg]
 """
 
 import argparse
 import functools
 import os
+
+import numpy as np
 
 from .. import resolve_device
 from ..data.crops import (CropBatchSource, PrefetchedSource, scan_emb_dir,
@@ -74,9 +80,13 @@ def get_args():
     parser.add_argument('--min_pose_score', type=float)
     parser.add_argument('--emb_dir', type=str)
     parser.add_argument('--penn_dir', type=str,
-                        help='penn ablation: not ported yet (ROADMAP A10)')
+                        help='Penn Action dir holding pose_embs.pkl + '
+                             'boxes.json (required for the penn '
+                             'ablation, train_vpd_model.py:49)')
     parser.add_argument('--penn_frame_dir', type=str,
-                        help='penn ablation: not ported yet (ROADMAP A10)')
+                        help='Penn Action full-frame dir (default '
+                             'paths.PENN_FRAME_DIR; the reference '
+                             'hardcodes this path)')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--resume', action='store_true',
                         help='continue from the last epoch checkpoint in '
@@ -124,13 +134,28 @@ def get_exclude_prefixes(dataset):
     raise NotImplementedError(dataset)
 
 
-def _not_ported(dataset, encoder_arch):
-    if dataset == 'penn':
-        raise NotImplementedError(
-            'the penn ablation is not ported yet (ROADMAP A10)')
-    if 'effnet' in encoder_arch:
-        raise NotImplementedError(
-            'EfficientNet students are not ported yet (ROADMAP A10)')
+def make_penn_sources(penn_dir, frame_dir, img_dim, batch_size, *,
+                      motion=False, min_pose_score=None, seed=0):
+    """Penn Action ablation sources (reference PennDataset.load_default,
+    `vpd_dataset/single_frame.py:316-358`): scan, 80/20 split (the
+    validation share rounded up, as sklearn's `train_test_split`; each
+    half sorted, as the reference's), train augmented and validation
+    deterministic. Returns (train, val, emb_dim)."""
+    from ..data.penn import PennBatchSource, scan_penn_dir
+
+    scan_kw = {'embed_time': motion}
+    if min_pose_score is not None:
+        scan_kw['min_pose_score'] = min_pose_score
+    samples, emb_dim = scan_penn_dir(penn_dir, **scan_kw)
+    order = np.random.default_rng(seed).permutation(len(samples))
+    n_val = int(np.ceil(0.2 * len(samples)))
+    val = sorted(samples[i] for i in order[:n_val])
+    train = sorted(samples[i] for i in order[n_val:])
+    return (PennBatchSource(train, frame_dir, img_dim, batch_size,
+                            target_len=TRAIN_LEN, seed=seed),
+            PennBatchSource(val, frame_dir, img_dim, batch_size,
+                            target_len=VAL_LEN, seed=seed + 1),
+            emb_dim)
 
 
 def worker_source(samples, img_dir, img_dim, batch_size, target_len, seed,
@@ -204,16 +229,37 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
          crop_shards=None, augment_val=False, hbm_cache=False,
          hbm_cache_sharded=False, penn_dir=None, penn_frame_dir=None,
          resume=False, jitter_order='batch', device='cuda'):
-    _not_ported(dataset, encoder_arch)
+    if dataset == 'penn':
+        # full-frame crops cut on the fly; no crop dir, shards or flow
+        # (the reference PennDataset raises NotImplementedError for flow)
+        assert penn_dir is not None, 'penn requires --penn_dir'
+        assert flow_img is None, 'penn has no optical flow'
+        assert not (crop_shards or hbm_cache or hbm_cache_sharded
+                    or num_workers or augment_val), \
+            'penn supports none of shards/hbm_cache/workers/augment_val'
     device = resolve_device(device)
-    if emb_dir is None:
-        emb_dir = os.path.join(ROOT_DIRS[dataset], 'embs')
-    exclude = get_exclude_prefixes(dataset) if no_test_video else None
-
-    samples, emb_dim = scan_emb_dir(
-        emb_dir, embed_time=motion, min_pose_score=min_pose_score,
-        exclude_prefixes=exclude, tennis_layout=(dataset == 'tennis'))
-    train, val = train_val_split(samples, 0.2, seed=seed)
+    if dataset == 'penn':
+        train_src, val_src, emb_dim = make_penn_sources(
+            penn_dir, penn_frame_dir or paths.PENN_FRAME_DIR, img_dim,
+            batch_size, motion=motion, min_pose_score=min_pose_score,
+            seed=seed)
+        train_src = PrefetchedSource(train_src, device=device)
+        val_src = PrefetchedSource(val_src, device=device)
+        owned = [train_src, val_src]
+    else:
+        if emb_dir is None:
+            emb_dir = os.path.join(ROOT_DIRS[dataset], 'embs')
+        exclude = get_exclude_prefixes(dataset) if no_test_video else None
+        samples, emb_dim = scan_emb_dir(
+            emb_dir, embed_time=motion, min_pose_score=min_pose_score,
+            exclude_prefixes=exclude, tennis_layout=(dataset == 'tennis'))
+        train, val = train_val_split(samples, 0.2, seed=seed)
+        train_src, val_src, owned = make_sources(
+            train, val, CROP_DIRS[dataset], img_dim, batch_size, seed,
+            flow_img=flow_img, crop_shards=crop_shards,
+            augment_val=augment_val, hbm_cache=hbm_cache,
+            hbm_cache_sharded=hbm_cache_sharded, num_workers=num_workers,
+            device=device)
 
     config = default_config(
         dataset, emb_dim, num_epochs=num_epochs, batch_size=batch_size,
@@ -223,11 +269,6 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
         model_select_window=model_select_window,
         checkpoint_frequency=checkpoint_frequency,
         augment_val=augment_val, jitter_order=jitter_order)
-    train_src, val_src, owned = make_sources(
-        train, val, CROP_DIRS[dataset], img_dim, batch_size, seed,
-        flow_img=flow_img, crop_shards=crop_shards, augment_val=augment_val,
-        hbm_cache=hbm_cache, hbm_cache_sharded=hbm_cache_sharded,
-        num_workers=num_workers, device=device)
     try:
         trainer = VPDTrainer(train_src, val_src, config, save_dir=save_dir,
                              seed=seed, device=device,

@@ -21,8 +21,11 @@ on the batch's device and one on the CPU for the batch's jitter order
 (`data.augment.sample_train_augment`). So step t draws the same values
 whether a run got there in one go or through a resume. The trainer
 passes `seed + 1` for training and `seed + 2` for augmented validation,
-as vpd_tpu keys them. The motion head's dropout is 0, so no dropout mask
-is drawn.
+as vpd_tpu keys them. The student's dropout masks (EfficientNet's
+stochastic depth and head dropout; ResNet and the motion head draw none)
+come from a third generator on the batch's device, seeded
+`dropout_seed(seed, step)`, so a resumed run draws them as an
+uninterrupted one does.
 """
 
 import numpy as np
@@ -31,7 +34,7 @@ from torch import nn
 
 from ..data.augment import (eval_transform_batch, sample_train_augment,
                             train_augment_batch)
-from ..models.fc import FCNet
+from ..models.fc import FCNet, FlaxDropout, set_dropout_draw
 from ..models.flax_weights import (student_params_from_flax,
                                    student_params_to_flax)
 
@@ -62,12 +65,17 @@ class VPDStudent(nn.Module):
 
 
 class VPDTrainState:
-    """The student (master parameters), its AdamW and the step count."""
+    """The student (master parameters), its AdamW and the step count.
+    `draws_dropout` says whether the student has a `FlaxDropout` that
+    draws a mask (an EfficientNet's; a ResNet student has none), found
+    once so that a step seeds no mask source it would not use."""
 
     def __init__(self, model, optimizer, step=0):
         self.model = model
         self.optimizer = optimizer
         self.step = step
+        self.draws_dropout = any(isinstance(m, FlaxDropout) and m.rate > 0
+                                 for m in model.modules())
 
 
 def create_state(model, learning_rate, weight_decay=0.01):
@@ -82,12 +90,21 @@ def create_state(model, learning_rate, weight_decay=0.01):
     return VPDTrainState(model, optimizer)
 
 
-def forward_backward(state, imgs, emb):
+def forward_backward(state, imgs, emb, dropout_draw=None):
     """Train-mode forward of (B, S, S, C) images (NHWC) and backward of
     sum((out - emb)^2), the un-normalized sum the reference backprops
-    (`train_vpd_model.py:87-91`). Returns the loss, on the device."""
+    (`train_vpd_model.py:87-91`). `dropout_draw` is the mask source of the
+    student's `FlaxDropout`s for this forward (`models/fc.py`), None for
+    a student that draws none. Returns the loss, on the device."""
     model = state.model.train()
-    out = model(imgs.permute(0, 3, 1, 2))
+    if dropout_draw is None:
+        out = model(imgs.permute(0, 3, 1, 2))
+    else:
+        set_dropout_draw(model, dropout_draw)
+        try:
+            out = model(imgs.permute(0, 3, 1, 2))
+        finally:
+            set_dropout_draw(model, None)
     loss_sum = torch.sum(torch.square(out - emb))
     state.optimizer.zero_grad(set_to_none=True)
     loss_sum.backward()
@@ -99,10 +116,10 @@ def optimizer_step(state):
     state.step += 1
 
 
-def apply_train_update(state, imgs, emb):
+def apply_train_update(state, imgs, emb, dropout_draw=None):
     """fwd/bwd/AdamW on an already-augmented float image batch; the
     metrics stay on the device."""
-    loss_sum = forward_backward(state, imgs, emb)
+    loss_sum = forward_backward(state, imgs, emb, dropout_draw)
     optimizer_step(state)
     return {'emb_loss_sum': loss_sum, 'n': float(emb.shape[0])}
 
@@ -110,6 +127,19 @@ def apply_train_update(state, imgs, emb):
 def fold_in(seed, step):
     """The seed of step `step` of a run seeded `seed`."""
     return (seed << 32) + step
+
+
+# mixes every bit of a step's seed: torch's CPU generator reads only a
+# seed's low 32 bits, CUDA's all 64
+_DROPOUT_STREAM = 0x9E3779B97F4A7C15
+
+
+def dropout_seed(seed, step):
+    """The seed of step `step`'s dropout masks: `fold_in(seed, step)`
+    mixed with a constant, a stream apart from the step's augmentation
+    draws on either device (as vpd_tpu folds 1 into the step's key for its
+    dropout)."""
+    return fold_in(seed, step) ^ _DROPOUT_STREAM
 
 
 class _Constants:
@@ -120,6 +150,7 @@ class _Constants:
         self.mean, self.std = mean, std
         self._stats = {}
         self._gens = {}
+        self._drop_gens = {}
 
     def stats(self, device, dtype):
         key = (device, dtype)
@@ -138,11 +169,19 @@ class _Constants:
         host_gen.manual_seed(seed)
         return gen, host_gen
 
+    def dropout_draw(self, device, seed, step):
+        """The mask source of step `step`: keep bits from a generator on
+        `device` seeded `dropout_seed(seed, step)`."""
+        if device not in self._drop_gens:
+            self._drop_gens[device] = torch.Generator(device=device)
+        gen = self._drop_gens[device]
+        gen.manual_seed(dropout_seed(seed, step))
+        return lambda shape, keep, dev: torch.rand(
+            shape, generator=gen, device=dev) < keep
 
-def _make_augment(mean, std, img_dim, use_flow, use_mask, aug_dtype,
+
+def _make_augment(consts, img_dim, use_flow, use_mask, aug_dtype,
                   jitter_order):
-    consts = _Constants(mean, std)
-
     def augment(batch, seed, step):
         """The batch's augmented images, from the draws of `fold_in(seed,
         step)`. Masks are used when the batch has them and `use_mask`."""
@@ -169,15 +208,21 @@ def make_train_step(mean, std, img_dim=128, use_flow=False, use_mask=True,
     ({'rgb', 'emb', 'flip'[, 'flow', 'mask']} tensors on the model's
     device) in `aug_dtype`, then fwd/bwd and AdamW. `jitter_order=
     'per_sample'` draws the colour-jitter op order per image (QUIRKS.md).
-    `step.augment(batch, seed, step_idx)` is the augmentation alone."""
-    augment = _make_augment(mean, std, img_dim, use_flow, use_mask,
-                            aug_dtype, jitter_order)
+    `step.augment(batch, seed, step_idx)` is the augmentation alone and
+    `step.dropout_draw(device, seed, step_idx)` the step's mask source."""
+    consts = _Constants(mean, std)
+    augment = _make_augment(consts, img_dim, use_flow, use_mask, aug_dtype,
+                            jitter_order)
 
     def step(state, batch, seed):
         imgs = augment(batch, seed, state.step)
-        return apply_train_update(state, imgs, batch['emb'])
+        return apply_train_update(
+            state, imgs, batch['emb'],
+            consts.dropout_draw(imgs.device, seed, state.step)
+            if state.draws_dropout else None)
 
     step.augment = augment
+    step.dropout_draw = consts.dropout_draw
     return step
 
 
@@ -198,15 +243,19 @@ def make_cached_train_step(mean, std, img_dim=128, use_flow=False,
     the step is `make_train_step`'s on the same pixels and draws. Masks are
     used when `use_mask` (the source's setting, not whether the cache
     holds masks)."""
-    augment = _make_augment(mean, std, img_dim, use_flow, use_mask,
-                            aug_dtype, jitter_order)
+    consts = _Constants(mean, std)
+    augment = _make_augment(consts, img_dim, use_flow, use_mask, aug_dtype,
+                            jitter_order)
     names = ('rgb',) + (('flow',) if use_flow else ()) + (
         ('mask',) if use_mask else ())
 
     def step(state, batch, seed, cache):
         pixels = cache_gather(cache, batch['idx'], names)
         imgs = augment({**pixels, 'flip': batch['flip']}, seed, state.step)
-        return apply_train_update(state, imgs, batch['emb'])
+        return apply_train_update(
+            state, imgs, batch['emb'],
+            consts.dropout_draw(imgs.device, seed, state.step)
+            if state.draws_dropout else None)
 
     return step
 
@@ -254,8 +303,8 @@ def make_aug_eval_step(mean, std, img_dim=128, use_flow=False,
     `vpd_dataset/single_frame.py:354`), the student in eval mode:
     step(state, batch, seed, step_idx) -> metrics. `aug_dtype` and
     `jitter_order` must match the train step's."""
-    augment = _make_augment(mean, std, img_dim, use_flow, use_mask,
-                            aug_dtype, jitter_order)
+    augment = _make_augment(_Constants(mean, std), img_dim, use_flow,
+                            use_mask, aug_dtype, jitter_order)
 
     def step(state, batch, seed, step_idx):
         return _eval_metrics(state, augment(batch, seed, step_idx),

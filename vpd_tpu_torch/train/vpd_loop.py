@@ -11,9 +11,9 @@ and a run resumes, in the other.
 Sources whose batches are cache row indices (`data/hbm_cache.
 CacheIndexSource`, carrying the `DeviceCropCache` as `device_cache`)
 train through the cached steps, which gather the pixels on the device.
-`pretrained` students start from a torchvision ImageNet state_dict
-(`models/torch_compat.py`). Not ported, and raising NotImplementedError:
-EfficientNet students (ROADMAP A10).
+`pretrained` ResNet students start from a torchvision ImageNet state_dict
+(`models/torch_compat.py`); EfficientNet students (`effnet0`..`effnet7`,
+`models/efficientnet.py`) always start from random init, as vpd_tpu's do.
 """
 
 import os
@@ -27,7 +27,7 @@ from ..core import checkpoint as ckpt
 from ..core.io import load_json, store_json
 from ..core.metrics import fetch_metrics
 from ..data.augment import RGB_MEAN_STD
-from ..models import build_encoder
+from ..models import build_effnet, build_encoder
 from ..models.flax_weights import (encoder_to_flax, load_encoder_from_flax,
                                    load_motion_from_flax, motion_to_flax)
 from ..models.torch_compat import (imagenet_init_variables,
@@ -45,14 +45,14 @@ def build_student(config, dtype=None, param_dtype=None):
     dtype = dtype if dtype is not None else torch.bfloat16
     arch = config['encoder_arch']
     if 'resnet' in arch:
-        encoder = build_encoder(arch, config['emb_dim'],
-                                in_channels=5 if config['use_flow'] else 3,
-                                dtype=dtype, param_dtype=param_dtype)
-    elif 'effnet' in arch:
-        raise NotImplementedError(
-            'EfficientNet students are not ported yet (ROADMAP A10)')
+        build = build_encoder
+    elif 'effnet' in arch:  # reference models/rgb.py:62-66
+        build = build_effnet
     else:
         raise NotImplementedError(arch)
+    encoder = build(arch, config['emb_dim'],
+                    in_channels=5 if config['use_flow'] else 3, dtype=dtype,
+                    param_dtype=param_dtype)
     motion = MotionHead(config['emb_dim']) if config['motion'] else None
     return VPDStudent(encoder, motion)
 
