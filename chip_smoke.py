@@ -57,8 +57,9 @@ line each; any failure raises and exits non-zero:
              byte bound, crops/s) beside the train phase's streamed
              step, and one step of each path on the same rows with cuDNN
              deterministic (loss rel 1e-6, parameters max rel 1e-5); the
-             CLI with --hbm_cache (2 epochs, --resume to 3) beside the
-             streamed CLI's epochs, and one epoch with --num_workers 2;
+             CLI with --hbm_cache (1 epoch, --resume to 2) beside the
+             streamed CLI's epochs, and one epoch (half its virtual
+             epoch) with --num_workers 2;
              `best_epoch` extracted through `apply_vpd` (B1 launches)
              against f32 weights (ROADMAP C2: min row cosine, mean
              pairwise cosines); 600 PNG crops decoded by the native
@@ -68,7 +69,8 @@ line each; any failure raises and exits non-zero:
              with TF32 off): four synthetic mocap families written in
              tools/paths' layout (`write_mocap_corpus`), `python -m
              vpd_tpu_torch.tools.train_vipe --dataset 3d` at vpd_tpu's
-             defaults (FCResNet 2 x 1024, 32-d, batch 100) for 1 epoch
+             defaults (FCResNet 2 x 1024, 32-d, batch 100; each epoch cut
+             to half of every family's) for 1 epoch
              and `--resume` to 2 in subprocesses with VPD_VIPE_DATA_DIR
              set, its loss.json, best_epoch and checkpoints checked; the
              step alone at B = 100 and 4096 on a ring of batches on the
@@ -151,8 +153,8 @@ line each; any failure raises and exits non-zero:
              card (ms split into augment, fwd + bwd and AdamW, crops/s,
              TFLOP/s against the bf16 peak, peak memory, the loss
              falling on one batch); `train_vpd fs --encoder_arch
-             effnet0` on the train phase's shards (2 epochs, --resume to
-             3, checkpoints read back); its best_epoch through
+             effnet0` on the train phase's shards (1 epoch, --resume to
+             2, checkpoints read back); its best_epoch through
              `apply_vpd` on the slice phase's shards (B1's launches
              counted as the `effnet_extraction` path, held against f32
              weights by the slice phase's bar); one `train_vpd penn`
@@ -170,6 +172,36 @@ line each; any failure raises and exits non-zero:
              `imported_extraction` path); `train_vipe --resume` for one
              epoch from the imported teacher; the effnet student's
              export refused with vpd_tpu's message
+  mesh       the device mesh (`core/mesh.py`) as one card can show it:
+             (a) `train_vpd` for one epoch (cut to 2,000 + 400 samples)
+             on the train phase's shards under `torchrun --standalone
+             --nproc_per_node 1` (NCCL, world 1) against the plain CLI,
+             both with cuDNN deterministic (loss.json rel 1e-6), and
+             `apply_vpd --data_parallel` under torchrun against the plain
+             CLI on the slice phase's PNG crops (min cosine, byte
+             equality); (b) two gloo ranks sharing the card: one step of
+             the full-width student (ResNet-34, 32-d, RGB + flow + mask,
+             global B = 256, TF32 off, cuDNN deterministic) against one
+             process on the same batch and draws, in float32 (loss rel
+             1e-5, BN statistics rtol 1e-4, ms a step of each; each
+             gradient within MESH_F32_SHARE_BAR times that bar below,
+             and the gradients halved, as DDP's default mean gives them,
+             outside it; the distance split into the BatchNorm code's
+             fork, one process on a one-rank NCCL group against cuDNN's
+             BatchNorm, and the batch's split, two ranks against that
+             one rank, read beside the floor of freely chosen cuDNN
+             algorithms; the synced formula's cost in the trainer's bf16
+             step, one rank against one process) and in float64 (each
+             gradient before AdamW within 1e-3 of its norm plus 1e-6 of
+             the whole's, and halved outside it); whether
+             gloo takes all_gather on card tensors; the teacher's tensor
+             parallelism on a (1, 2) grid at vpd_tpu's widths (float64
+             loss and gradients against one process, float32 ms a
+             step); the library `apply_vpd`
+             with the mesh on the slice phase's 1,200 crops against one
+             process (cos 1 - 1e-4, byte equality; B1's launches summed
+             over the ranks as the `data_parallel_extraction` path);
+             (c) what one card cannot show, listed
 
 The last three lines are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
@@ -187,6 +219,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -279,7 +312,7 @@ CLI_EPOCHS = 1             # then --resume one more
 CACHE_VIDEOS, CACHE_FRAMES = 40, 600  # 24,000 crops: one virtual epoch
 CACHE_CHECK_ROWS = 512
 CACHE_LOSS_RTOL, CACHE_PARAM_RTOL = 1e-6, 1e-5
-CLI_CACHE_EPOCHS = 2       # then --resume one more
+CLI_CACHE_EPOCHS = 1       # then --resume one more
 PNG_VIDEOS, PNG_FRAMES = 2, 300
 TEACHER_EPOCHS = 1         # then --resume one more
 TEACHER_BATCHES = (100, 4096)
@@ -321,7 +354,12 @@ DTW_NATIVE_RTOL = 1e-9     # tests/test_dtw_native.py's bar on sequences
 # and pointwise convolutions); its step's batch leaves room on the card
 EFFNET_ARCH, EFFNET_B = 'effnet0', 1024
 EFFNET_CPU_B = 8           # one step on cuda against the CPU
-EFFNET_CLI_EPOCHS = 2      # then --resume to 3
+EFFNET_CLI_EPOCHS = 1      # then --resume to 2
+# the share of its virtual epoch that the teacher's CLIs and the cache
+# phase's worker run take (the script's time limit; the effnet CLI keeps
+# whole epochs: its extraction check needs a student whose crops' rows
+# differ)
+CLI_SHARE = 0.5
 EFFNET_LOSS_RTOL = 1e-4    # tests/test_torch_cuda.py's train-step bars
 EFFNET_STATS_RTOL, EFFNET_STATS_ATOL = 1e-4, 1e-6   # BN running statistics
 # each gradient: |g_cuda - g_cpu| <= rtol |g_cpu| + floor |whole gradient|
@@ -332,6 +370,22 @@ EFFNET_PARAM_ATOL = 2.5    # x lr: Adam's first step is about lr x sign(g)
 PENN_SEQS, PENN_FRAMES, PENN_SIZE = 4, 40, (640, 480)
 PENN_TRAIN_LEN, PENN_VAL_LEN = 600, 200
 PENN_TIMED_BATCHES = 5
+# the device mesh on one card: torchrun at world 1 (NCCL), and two gloo
+# ranks sharing the card on the full-width student step (B = 256, float32,
+# TF32 off) and on the slice phase's extraction
+MESH_CLI_SHARE = 0.1         # the CLI's epoch: 2,000 + 400 samples
+MESH_CLI_RTOL = 1e-6        # loss.json, torchrun world 1 against plain
+MESH_B, MESH_RANKS, MESH_TIMED = 256, 2, 3
+MESH_TEACHER_B = 100        # train_vipe's default batch
+MESH_LOSS_RTOL = 1e-5
+MESH_STATS_RTOL, MESH_STATS_ATOL = 1e-4, 1e-6
+MESH_GRAD_RTOL, MESH_GRAD_FLOOR = 1e-3, 1e-6   # the effnet phase's bar
+# float32 gradients in shares of that bar: any change in how BatchNorm's
+# float32 statistics are summed (its code, or the batch's split) moves a
+# random-init ResNet-34's layer1.0.conv1 gradient by 7.0-8.0 of it, a change
+# of convolution algorithms by 0.025, DDP's mean by 499 (PERF.md, mesh)
+MESH_F32_SHARE_BAR = 20.
+MESH_COS_BAR = 1 - 1e-4     # extraction against one process
 
 
 # the teacher's synthetic mocap corpus, in tools/paths' layout; the people
@@ -1499,21 +1553,89 @@ def _write_train_corpus(root, rng):
     return emb_dir, shard_dir, keys
 
 
-def _train_cli(args, env, tool='train_vpd'):
-    """One `python -m vpd_tpu_torch.tools.<tool>` run: (seconds, the
-    seconds of each epoch it printed)."""
+_RUN_TOOLS = """import dataclasses
+import importlib
+import os
+import sys
+
+
+def main(argv):
+    share = float(argv.pop(0))
+    if argv.pop(0) == 'deterministic':
+        import torch
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    if 'WORLD_SIZE' in os.environ:  # torchrun: one group for every run
+        from vpd_tpu_torch.core.mesh import init_distributed
+        init_distributed()
+    cut = set()
+    while argv:
+        end = argv.index('--then') if '--then' in argv else len(argv)
+        run, argv = argv[:end], argv[end + 1:]
+        tool = importlib.import_module('vpd_tpu_torch.tools.' + run[0])
+        if share != 1 and run[0] not in cut:
+            cut.add(run[0])
+            if hasattr(tool, 'TRAIN_LEN'):
+                tool.TRAIN_LEN = int(tool.TRAIN_LEN * share)
+                tool.VAL_LEN = int(tool.VAL_LEN * share)
+            elif run[0] == 'train_vipe':  # each mocap family's epoch
+                from vpd_tpu_torch.data import vipe_sampler as vs
+                for name, fam in list(vs.FAMILIES.items()):
+                    vs.FAMILIES[name] = dataclasses.replace(
+                        fam,
+                        train_target_len=int(fam.train_target_len * share),
+                        val_target_len=int(fam.val_target_len * share))
+        sys.argv = [tool.__name__] + run[1:]
+        tool.main(**vars(tool.get_args()))
+
+
+if __name__ == '__main__':  # not in a spawned decode worker
+    main(sys.argv[1:])
+"""
+
+
+def _run_tools(runs, env, share=1., deterministic=False, torchrun=False):
+    """`vpd_tpu_torch.tools.<tool> <args>` for each (tool, args) of
+    `runs`, one after the other in one process: `share` cuts each train
+    tool's virtual epoch to that share of its own (train_vpd's samples,
+    each of train_vipe's families); `deterministic` holds cuDNN (and
+    cuBLAS, by its workspace setting) to deterministic algorithms;
+    `torchrun` launches the process under `torchrun --standalone
+    --nproc_per_node 1`. Returns (seconds, the epochs' seconds, stdout)."""
+    script = os.path.join(WORK, 'run_tools.py')
+    if not os.path.exists(script):
+        with open(script, 'w') as fp:
+            fp.write(_RUN_TOOLS)
+    cmd = [sys.executable]
+    if torchrun:
+        cmd += ['-m', 'torch.distributed.run', '--standalone',
+                '--nproc_per_node', '1']
+    argv = []
+    for tool, args in runs:
+        argv += (['--then'] if argv else []) + [tool] + list(args)
+    cmd += [script, str(share),
+            'deterministic' if deterministic else 'free'] + argv
+    env = dict(env, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, env.get('PYTHONPATH')) if p))
+    if deterministic:
+        env['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, '-m', 'vpd_tpu_torch.tools.' + tool, *args],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
     secs = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError('{} failed ({}): {}'.format(
-            tool, proc.returncode, proc.stderr[-3000:]))
+        raise AssertionError('{}{} failed ({}): {}'.format(
+            'torchrun ' if torchrun else '', [r[0] for r in runs],
+            proc.returncode, proc.stderr[-3000:]))
     epochs = [float(line.rsplit('(', 1)[1].split()[0])
               for line in proc.stdout.splitlines()
               if line.startswith('Epoch ')]
-    return secs, epochs
+    return secs, epochs, proc.stdout
+
+
+def _train_cli(args, env, tool='train_vpd', share=1.):
+    """One tool run (`_run_tools`): (seconds, the epochs' seconds)."""
+    return _run_tools([(tool, args)], env, share)[:2]
 
 
 def phase_train(card):
@@ -1794,7 +1916,7 @@ def _cached_cli(train, env):
             missing))
     workers = _train_cli(common + ['--save_dir', os.path.join(
         train['root'], 'run_workers'), '--num_workers', '2',
-        '--num_epochs', '1'], env)
+        '--num_epochs', '1'], env, share=CLI_SHARE)
     epoch_s = first[1] + resumed[1]
     per_epoch = 100 * (200 + 40)
     return save, {
@@ -1804,7 +1926,8 @@ def _cached_cli(train, env):
         'streamed_epoch_seconds': train['cli_epoch_seconds'],
         'losses': [[r['train'], r['val']] for r in losses],
         'workers_2': {'run_seconds': workers[0],
-                      'epoch_seconds': workers[1]}}
+                      'epoch_seconds': workers[1],
+                      'epoch_share': CLI_SHARE}}
 
 
 def _png_input(root, rng):
@@ -2034,7 +2157,8 @@ def _teacher_apply(save, root, rng):
 
 def phase_teacher(card, train):
     """The VIPE* teacher: train_vipe at full width on synthetic mocap
-    (TEACHER_EPOCHS, --resume one more), the step at B = 100 and 4096,
+    (TEACHER_EPOCHS, --resume one more; epochs cut to CLI_SHARE), the
+    step at B = 100 and 4096,
     the sampler, apply_vipe on the train corpus' videos, and one
     train_vpd epoch on the teacher's embeddings (ROADMAP C2 read on that
     student)."""
@@ -2050,9 +2174,10 @@ def phase_teacher(card, train):
               '--checkpoint_frequency', '1', '--render_preview_frequency',
               '0']
     first = _train_cli(common + ['--num_epochs', str(TEACHER_EPOCHS)], env,
-                       'train_vipe')
+                       'train_vipe', share=CLI_SHARE)
     resumed = _train_cli(common + ['--num_epochs', str(TEACHER_EPOCHS + 1),
-                                   '--resume'], env, 'train_vipe')
+                                   '--resume'], env, 'train_vipe',
+                         share=CLI_SHARE)
     with open(os.path.join(save, 'loss.json')) as fp:
         losses = json.load(fp)
     if [r['epoch'] for r in losses] != list(range(1, TEACHER_EPOCHS + 2)) \
@@ -2091,7 +2216,8 @@ def phase_teacher(card, train):
     c2 = _embedding_spread(student, train['shard_dir'],
                            os.path.join(train['sports'], 'fs', 'crops'),
                            os.path.join(root, 'student_embs'))
-    per_epoch = 500 + 50  # batches of 100: 50,000 train + 5,000 val rows
+    # batches of 100: 50,000 train + 5,000 val rows, cut to CLI_SHARE
+    per_epoch = int((500 + 50) * CLI_SHARE)
     epoch_s = first[1] + resumed[1]
     emit({'phase': 'teacher', 'card': card,
           'mocap': {'families': len(MOCAP_DIRS), 'poses_2d': poses_2d,
@@ -3527,7 +3653,7 @@ def _penn_epoch(card):
 
 def phase_effnet(card, train):
     """The EfficientNet-b0 student: a step on cuda against the CPU, the
-    bf16 step alone at EFFNET_B, the CLI (2 epochs, --resume to 3), its
+    bf16 step alone at EFFNET_B, the CLI (1 epoch, --resume to 2), its
     best_epoch through apply_vpd (B1 launches), and a Penn epoch."""
     t0 = time.perf_counter()
     result = {'phase': 'effnet', 'card': card,
@@ -3659,7 +3785,8 @@ def phase_torch_io(card, train, effnet_dir):
     resume_s, epochs = _train_cli(
         ['--dataset', '3d', '--save_dir', back, '--checkpoint_frequency',
          '1', '--render_preview_frequency', '0', '--num_epochs',
-         str(TEACHER_EPOCHS + 2), '--resume'], env, 'train_vipe')
+         str(TEACHER_EPOCHS + 2), '--resume'], env, 'train_vipe',
+        share=CLI_SHARE)
     with open(os.path.join(back, 'loss.json')) as fp:
         losses = json.load(fp)
     if [r['epoch'] for r in losses] != list(range(1, TEACHER_EPOCHS + 3)):
@@ -3680,6 +3807,429 @@ def phase_torch_io(card, train, effnet_dir):
     if not refusal.startswith('only resnet student exports are supported'):
         raise AssertionError('effnet refusal: {}'.format(refusal))
     result['effnet_refusal'] = refusal
+    result['seconds'] = time.perf_counter() - t0
+    emit(result)
+    return launches
+
+
+# ------------------------------------------------------------------ mesh
+
+def _files_equal(a, b):
+    names = sorted(os.listdir(b))
+    return names == sorted(os.listdir(a)) and all(
+        open(os.path.join(a, f), 'rb').read()
+        == open(os.path.join(b, f), 'rb').read() for f in names)
+
+
+def _world_one(train):
+    """(a): in one process, `train_vpd` for one epoch on the train phase's
+    shards, then `apply_vpd` on the slice phase's PNG crops (video 0) and
+    flow student: under torchrun at world 1 (NCCL, `--data_parallel`)
+    and plain, both with cuDNN deterministic. loss.json within
+    MESH_CLI_RTOL; the embeddings' cosine and byte equality."""
+    sports = os.path.join(WORK, 'mesh_sports')
+    os.makedirs(os.path.join(sports, 'fs'))
+    os.symlink(os.path.join(WORK, 'crops'),
+               os.path.join(sports, 'fs', 'crops'))
+    env = dict(os.environ, VPD_SPORTS_DIR=sports)
+    train_args = ['fs', '--emb_dir', train['emb_dir'], '--crop_shards',
+                  train['shard_dir'], '--flow_img', 'flow', '--motion',
+                  '--num_epochs', '1']
+    apply_args = [os.path.join(WORK, 'student_flow'), '-d', 'fs',
+                  '--flow_img', 'flow', '--crop_shards',
+                  os.path.join(WORK, 'shards')]
+    runs, outs = {}, {}
+    for name, torchrun in (('plain', False), ('torchrun', True)):
+        save = os.path.join(WORK, 'mesh_' + name)
+        outs[name] = os.path.join(WORK, 'mesh_embs_' + name)
+        secs, epochs, out = _run_tools(
+            [('train_vpd', train_args + ['--save_dir', save]),
+             ('apply_vpd', apply_args + ['-o', outs[name]]
+              + (['--data_parallel'] if torchrun else []))], env,
+            MESH_CLI_SHARE, deterministic=True, torchrun=torchrun)
+        with open(os.path.join(save, 'loss.json')) as fp:
+            losses = [[r['train'], r['val']] for r in json.load(fp)]
+        runs[name] = {'run_seconds': secs, 'epoch_seconds': epochs,
+                      'losses': losses,
+                      'world_lines': [l for l in out.splitlines()
+                                      if l.startswith('world size')]}
+    a, b = (np.array(runs[k]['losses']) for k in ('plain', 'torchrun'))
+    rel = float(np.abs(a - b).max() / np.abs(a).max())
+    if runs['torchrun']['world_lines'] != ['world size 1 (nccl on cuda)'] * 2 \
+            or not rel <= MESH_CLI_RTOL:
+        raise AssertionError('torchrun world 1: {}, loss rel {}'.format(
+            runs['torchrun']['world_lines'], rel))
+    embs = {k: _load_embs(v) for k, v in outs.items()}
+    _check_rows(embs['torchrun'], range(FRAMES))
+    keys = [(0, f) for f in range(FRAMES)]
+    cos, matched = _cosines(_stack(embs['torchrun'], keys),
+                            _stack(embs['plain'], keys))
+    if not (cos >= MESH_COS_BAR and matched):
+        raise AssertionError('apply_vpd --data_parallel at world 1: min '
+                             'cosine {}, rows matched {}'.format(cos,
+                                                                 matched))
+    return {'cli_loss_rel': rel, 'cli_loss_rtol': MESH_CLI_RTOL,
+            'runs': runs, 'apply_vpd_crops': FRAMES,
+            'apply_vpd_min_cosine': cos,
+            'apply_vpd_byte_equal': _files_equal(outs['torchrun'],
+                                                 outs['plain'])}
+
+
+def _mesh_batch(b=MESH_B):
+    rng = np.random.default_rng(SEED + 13)
+    return {'rgb': rng.integers(0, 256, (b, IMG, IMG, 3), np.uint8),
+            'flow': rng.integers(0, 256, (b, IMG, IMG, 3), np.uint8),
+            'mask': ((rng.random((b, IMG, IMG)) > 0.5) * 255).astype(
+                np.uint8),
+            'emb': rng.normal(0, 1, (b, EMB)).astype(np.float32),
+            'flip': rng.random(b) < 0.5}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _steps_ms(device, fn, n):
+    """ms of each of n calls of fn: CUDA events on a card (the host's
+    clock elsewhere, for a rehearsal on the CPU)."""
+    ms = []
+    for _ in range(n):
+        if device.type != 'cuda':
+            t0 = time.perf_counter()
+            fn()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            continue
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return ms
+
+
+def _mesh_student_step(mesh, batch, timed=0, dtype=torch.float32,
+                       deterministic=True):
+    """One step of the full-width student (ResNet-34, 32-d, RGB + flow +
+    mask, in `dtype`, TF32 off, cuDNN deterministic unless told not; in
+    bf16 the trainer's: float32 master weights) on this rank's rows of
+    the global batch: the local loss, rank 0's gradients before AdamW and
+    BN running statistics (global on every rank), then `timed` more
+    steps' ms (CUDA events); whether the backend takes all_gather on card
+    tensors, read last."""
+    from vpd_tpu_torch.core.mesh import _dist, part_rows
+
+    cfg = default_config('fs', EMB, img_dim=IMG, use_flow=True,
+                         encoder_arch='resnet34')
+    mixed = dtype == torch.bfloat16
+    with _no_tf32(), (_deterministic() if deterministic
+                      else contextlib.nullcontext()):
+        torch.manual_seed(SEED)
+        if mixed:
+            model = build_student(cfg, dtype=dtype,
+                                  param_dtype=torch.float32).to(mesh.device)
+        else:
+            model = build_student(cfg, dtype=dtype).to(mesh.device, dtype)
+        state = create_state(model, cfg['learning_rate'], mesh=mesh)
+        step = make_train_step(*cfg['rgb_mean_std'], img_dim=IMG,
+                               use_flow=True, aug_dtype=dtype)
+        rows = part_rows(len(batch['rgb']), mesh.batch_part)
+        local = {k: torch.from_numpy(v[rows]).to(mesh.device)
+                 for k, v in batch.items()}
+        local['emb'] = local['emb'].to(torch.float32 if mixed else dtype)
+        loss = float(step(state, local, SEED)['emb_loss_sum'])
+        out = {'loss': loss, 'rows': rows.stop - rows.start}
+        if mesh.rank == 0:
+            out['grads'] = {n: p.grad.detach().cpu().numpy()
+                            for n, p in model.named_parameters()}
+            out['stats'] = {n: b.detach().cpu().numpy()
+                            for n, b in model.named_buffers()
+                            if 'running' in n}
+        out['step_ms'] = _steps_ms(mesh.device, lambda: step(
+            state, local, SEED), timed)
+    dist = _dist()
+    if dist is not None:
+        parts = [torch.zeros(1, device=mesh.device) for _ in range(mesh.world)]
+        try:
+            dist.all_gather(parts, torch.ones(1, device=mesh.device))
+            out['gloo_all_gather_on_cuda'] = 'ran'
+        except Exception as exc:  # noqa: BLE001 - the refusal is the datum
+            out['gloo_all_gather_on_cuda'] = '{}: {}'.format(
+                type(exc).__name__, str(exc).splitlines()[0][:160])
+    return out
+
+
+@contextlib.contextmanager
+def _nccl_world_one():
+    """A one-rank NCCL group in this process, and a data mesh on it: the
+    step then syncs BatchNorm (the synced formula) and reduces its
+    gradients as a rank of N does, over one card."""
+    import torch.distributed as dist
+    from vpd_tpu_torch.core.mesh import TIMEOUT, Mesh
+
+    rendezvous = tempfile.mkdtemp(dir=WORK)
+    dist.init_process_group(
+        'nccl', init_method='file://' + os.path.join(rendezvous, 'pg'),
+        world_size=1, rank=0, timeout=TIMEOUT)
+    try:
+        yield Mesh(torch.device('cuda', torch.cuda.current_device()),
+                   data_group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+
+
+def _grad_share(got, want):
+    """The worst gradient's distance over its bar (1e-3 of its norm plus
+    1e-6 of the whole gradient's), and which one."""
+    norms = {n: float(np.linalg.norm(g)) for n, g in want.items()}
+    whole = math.sqrt(sum(v * v for v in norms.values()))
+    ratio = {n: float(np.linalg.norm(got[n] - g)) / (
+        MESH_GRAD_RTOL * norms[n] + MESH_GRAD_FLOOR * whole)
+        for n, g in want.items()}
+    worst = max(ratio, key=lambda n: (not math.isfinite(ratio[n]),
+                                      ratio[n]))
+    return ratio[worst], worst
+
+
+def _mesh_teacher_batch(b=MESH_TEACHER_B):
+    """A fused teacher batch of two 3D families and a pairwise one."""
+    rng = np.random.default_rng(SEED + 14)
+    kp_dims = [140, 154, 0]
+    ds = rng.integers(0, 3, b)
+    kp_mask = np.zeros((3, max(kp_dims)), np.float32)
+    for i, d in enumerate(kp_dims):
+        kp_mask[i, :d] = 1
+    batch = {k: rng.normal(0, 1, (b, 39)).astype(np.float32)
+             for k in ('pose1', 'pose2', 'pose_neg')}
+    batch.update(dataset_id=ds.astype(np.int32),
+                 neg_valid=(rng.random(b) < 0.8).astype(np.float32),
+                 has_3d=(ds < 2).astype(np.float32),
+                 kp_features=rng.normal(0, 1, (b, max(kp_dims))).astype(
+                     np.float32) * kp_mask[ds])
+    return batch, kp_dims, kp_mask
+
+
+def _mesh_teacher_tp(mesh, model_group):
+    """One teacher step at vpd_tpu's widths (FCResNet 2 x 1024, 32-d,
+    decoder 2 x 512, dropout on) in float64, then `MESH_TIMED` float32
+    steps (TF32 off), on a (1, `model_group`) grid: the loss, the
+    gradients before AdamW gathered whole (rank 0) and the float32 ms a
+    step."""
+    from vpd_tpu_torch.core.mesh import get_mesh_2d, shard_batch
+    from vpd_tpu_torch.models.tensor_parallel import (full_tensors,
+                                                      shard_vipe_model)
+
+    batch, kp_dims, kp_mask = _mesh_teacher_batch()
+    config = tvloop.default_config(
+        ['a', 'b', 'c'], [(20, 7), (22, 7), None],
+        [np.ones(20), np.ones(22), None])
+    if model_group > 1:
+        mesh = get_mesh_2d(model_group, device=mesh.device)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        with _no_tf32():
+            torch.manual_seed(SEED)
+            model = tvloop.build_model(config, kp_dims).to(mesh.device,
+                                                           dtype)
+            dims = shard_vipe_model(model, mesh) if model_group > 1 else {}
+            state = create_state(model, config['learning_rate'], mesh=mesh)
+            step = tvipe.make_train_step(kp_mask)
+            local = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in shard_batch(batch, mesh).items()}
+            if dtype == torch.float64:
+                out['loss'] = float(step(state, local, SEED)['loss_sum'])
+                grads = full_tensors({n: p.grad for n, p in
+                                      model.named_parameters()}, dims, mesh)
+                if mesh.rank == 0:
+                    out['grads'] = {n: g.cpu().numpy()
+                                    for n, g in grads.items()}
+                continue
+            out['step_ms'] = _steps_ms(mesh.device, lambda: step(
+                state, local, SEED), MESH_TIMED + 1)[1:]
+    return out
+
+
+def _mesh_extraction(mesh, out):
+    """The library `apply_vpd` with the mesh over the slice phase's 1,200
+    crops (shards) and its flow student: this rank's B1 launches, counted
+    from 0 around the run."""
+    crop_dir = os.path.join(WORK, 'crops')
+    reader = ShardReader(os.path.join(WORK, 'shards'), crop_root=crop_dir)
+    tasks = [(v, f, os.path.join(crop_dir, 'video{}'.format(v), str(f)))
+             for v in range(VIDEOS) for f in range(FRAMES)]
+    videos = ['video{}'.format(v) for v in range(VIDEOS)]
+    d = os.path.join(WORK, 'student_flow')
+    prepared = ap.load_student_dir(d, device=mesh.device)
+    pre.launches = 0
+    t0 = time.perf_counter()
+    ap.apply_vpd(videos, tasks, d, out, flow_img_name='flow',
+                 batch_size=BATCH, prepared=prepared, shard_reader=reader,
+                 mesh=mesh, log=lambda *a: None)
+    return {'b1_launches': pre.launches,
+            'seconds': time.perf_counter() - t0}
+
+
+def _mesh_rank_work(mesh, batch, out_dir):
+    """All that (b) runs on a rank, in one spawn: the student step in
+    float32 (timed) and float64, the teacher on a (1, 2) grid, the
+    extraction."""
+    out = {'f32': _mesh_student_step(mesh, batch, timed=MESH_TIMED)}
+    torch.cuda.empty_cache()
+    out['f64'] = _mesh_student_step(mesh, batch, dtype=torch.float64)
+    torch.cuda.empty_cache()
+    out['teacher'] = _mesh_teacher_tp(mesh, MESH_RANKS)
+    out['extraction'] = _mesh_extraction(mesh, out_dir)
+    return out
+
+
+def _two_ranks_on_one_card():
+    """(b): two gloo ranks sharing cuda:0 against one process: the
+    student step (loss, BN statistics, gradients before AdamW), the
+    teacher's tensor parallelism and the library extraction."""
+    from vpd_tpu_torch.core.mesh import get_mesh, spawn_ranks
+
+    batch = _mesh_batch()
+    outs = {'one': os.path.join(WORK, 'mesh_dp_one'),
+            'ranks': os.path.join(WORK, 'mesh_dp_ranks')}
+    one = {'f32': _mesh_student_step(get_mesh(), batch, timed=MESH_TIMED),
+           # the float32 floor: the same one-process step on the
+           # convolution algorithms cuDNN picks when not held to
+           # deterministic ones
+           'free': _mesh_student_step(get_mesh(), batch,
+                                      deterministic=False),
+           'bf16': _mesh_student_step(get_mesh(), batch, timed=MESH_TIMED,
+                                      dtype=torch.bfloat16,
+                                      deterministic=False),
+           'f64': _mesh_student_step(get_mesh(), batch, dtype=torch.float64),
+           'teacher': _mesh_teacher_tp(get_mesh(), 1),
+           'extraction': _mesh_extraction(get_mesh(), outs['one'])}
+    # the same process on a one-rank NCCL group: the synced BatchNorm
+    # formula on the whole batch, in float32 and in the trainer's bf16
+    with _nccl_world_one() as synced:
+        one['synced'] = _mesh_student_step(synced, batch)
+        one['synced_bf16'] = _mesh_student_step(
+            synced, batch, timed=MESH_TIMED, dtype=torch.bfloat16,
+            deterministic=False)
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(_mesh_rank_work, MESH_RANKS, batch, outs['ranks'],
+                        workdir=WORK, device='cuda:0', backend='gloo',
+                        timeout=600)
+    f32 = [r['f32'] for r in ranks]
+    loss_rel = abs(sum(r['loss'] for r in f32) - one['f32']['loss']) / abs(
+        one['f32']['loss'])
+    stats_excess = max(float((np.abs(f32[0]['stats'][n] - t)
+                              - MESH_STATS_ATOL
+                              - MESH_STATS_RTOL * np.abs(t)).max())
+                       for n, t in one['f32']['stats'].items())
+    step = {'global_batch': MESH_B, 'ranks': MESH_RANKS,
+            'rows_per_rank': [r['rows'] for r in f32],
+            'loss_one_process': one['f32']['loss'],
+            'loss_ranks': sum(r['loss'] for r in f32),
+            'loss_rel': loss_rel, 'loss_rtol': MESH_LOSS_RTOL,
+            'bn_stats_excess': stats_excess,
+            'bn_stats_rtol': MESH_STATS_RTOL,
+            'grad_rtol': MESH_GRAD_RTOL,
+            'grad_floor_of_whole': MESH_GRAD_FLOOR,
+            'one_process_step_ms': one['f32']['step_ms'],
+            'rank_step_ms': [r['step_ms'] for r in f32],
+            'gloo_all_gather_on_cuda': f32[0]['gloo_all_gather_on_cuda']}
+    # float32: the two ranks against one process split into the fork of
+    # BatchNorm code (the synced formula on one rank against cuDNN's) and
+    # the batch's split (two ranks against one, both synced), beside the
+    # floor of a change of cuDNN algorithms
+    for key, got, want in (
+            ('f32_grad', f32[0], one['f32']),
+            ('f32_bn_fork', one['synced'], one['f32']),
+            ('f32_split', f32[0], one['synced']),
+            ('f32_floor_free_algos', one['free'], one['f32'])):
+        step[key + '_share_of_bar'], step[key + '_worst'] = _grad_share(
+            got['grads'], want['grads'])
+    step['f32_synced_loss_rel'] = abs(
+        one['synced']['loss'] - one['f32']['loss']) / abs(one['f32']['loss'])
+    step['f32_ddp_mean_share_of_bar'] = _grad_share(
+        {n: g / MESH_RANKS for n, g in f32[0]['grads'].items()},
+        one['f32']['grads'])[0]
+    step['f32_share_bar'] = MESH_F32_SHARE_BAR
+    step['bf16_one_process_step_ms'] = one['bf16']['step_ms']
+    step['bf16_synced_one_rank_step_ms'] = one['synced_bf16']['step_ms']
+    # the gradients in float64, where rounding cannot hide a factor
+    f64 = [r['f64'] for r in ranks]
+    step['f64_loss_rel'] = abs(sum(r['loss'] for r in f64)
+                               - one['f64']['loss']) / abs(one['f64']['loss'])
+    (step['f64_grad_worst_share_of_bar'],
+     step['f64_grad_worst']) = _grad_share(f64[0]['grads'],
+                                           one['f64']['grads'])
+    halved = {n: g / MESH_RANKS for n, g in f64[0]['grads'].items()}
+    step['f64_ddp_mean_share_of_bar'] = _grad_share(
+        halved, one['f64']['grads'])[0]
+    if not (loss_rel <= MESH_LOSS_RTOL and stats_excess <= 0
+            and step['f64_grad_worst_share_of_bar'] <= 1
+            and step['f64_ddp_mean_share_of_bar'] > 1
+            and max(step[k + '_share_of_bar'] for k in (
+                'f32_grad', 'f32_bn_fork', 'f32_split')) <= MESH_F32_SHARE_BAR
+            and step['f32_ddp_mean_share_of_bar'] > MESH_F32_SHARE_BAR):
+        raise AssertionError('two ranks on one card: {}'.format(step))
+
+    # the teacher's tensor parallelism: a (1, 2) grid sharing the card
+    teacher = [r['teacher'] for r in ranks]
+    tp = {'batch': MESH_TEACHER_B, 'grid': [1, MESH_RANKS],
+          'f64_loss_rel': max(abs(r['loss'] - one['teacher']['loss'])
+                              for r in teacher) / abs(one['teacher']['loss']),
+          'loss_rtol': MESH_LOSS_RTOL,
+          'one_process_f32_step_ms': one['teacher']['step_ms'],
+          'rank_f32_step_ms': [r['step_ms'] for r in teacher]}
+    tp['f64_grad_worst_share_of_bar'], tp['f64_grad_worst'] = _grad_share(
+        teacher[0]['grads'], one['teacher']['grads'])
+    if not (tp['f64_loss_rel'] <= MESH_LOSS_RTOL
+            and tp['f64_grad_worst_share_of_bar'] <= 1):
+        raise AssertionError('tensor parallel teacher on one card: {}'
+                             .format(tp))
+    step['teacher_tensor_parallel'] = tp
+
+    # the extraction: ranks split the chunks, rank 0 writes
+    keys = [(v, f) for v in range(VIDEOS) for f in range(FRAMES)]
+    embs = {k: _load_embs(v) for k, v in outs.items()}
+    _check_rows(embs['ranks'], range(FRAMES))
+    cos, matched = _cosines(_stack(embs['ranks'], keys),
+                            _stack(embs['one'], keys))
+    launches = [r['extraction']['b1_launches'] for r in ranks]
+    n_chunks = -(-len(keys) // BATCH)
+    if not (cos >= MESH_COS_BAR and matched and sum(launches) == n_chunks):
+        raise AssertionError('extraction on two ranks: min cosine {}, rows '
+                             'matched {}, B1 launches {} of {}'.format(
+                                 cos, matched, launches, n_chunks))
+    return step, {'crops': len(keys), 'batch': BATCH,
+                  'b1_launches_by_rank': launches,
+                  'min_cosine_vs_one_process': cos,
+                  'byte_equal': _files_equal(outs['ranks'], outs['one']),
+                  'seconds_one_process': one['extraction']['seconds'],
+                  'seconds_by_rank': [r['extraction']['seconds']
+                                      for r in ranks]}, sum(launches)
+
+
+def phase_mesh(card, train):
+    """The device mesh on one card: (a) world 1 under NCCL through
+    torchrun, (b) two gloo ranks sharing the card, (c) what one card
+    cannot show."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result = {'phase': 'mesh', 'card': card, 'world_one': _world_one(train)}
+    result['two_ranks_step'], result['two_ranks_extraction'], launches = \
+        _two_ranks_on_one_card()
+    result['not_run_on_one_card'] = [
+        'NCCL at world > 1 (NCCL refuses two ranks on one GPU)',
+        'the row-sharded crop cache across cards',
+        'any speed of N cards (two ranks time-slice this one)',
+        'the CPU tests run the first two as gloo ranks']
     result['seconds'] = time.perf_counter() - t0
     emit(result)
     return launches
@@ -3708,13 +4258,16 @@ def main():
         prep_launches = phase_prep(card)
         effnet_launches, effnet_dir = phase_effnet(card, train)
         imported_launches = phase_torch_io(card, train, effnet_dir)
+        mesh_launches = phase_mesh(card, train)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # B1's launches on its five paths, each counted from 0 around its runs
+    # B1's launches on its six paths, each counted from 0 around its runs
+    # (the data-parallel extraction: summed over its two ranks)
     by_path = {'slice': slice_launches, 'yuv420_extraction': yuv420_launches,
                'prep_chain': prep_launches,
                'effnet_extraction': effnet_launches,
-               'imported_extraction': imported_launches}
+               'imported_extraction': imported_launches,
+               'data_parallel_extraction': mesh_launches}
     preprocess['launches'] = sum(by_path.values())
     preprocess['launches_by_path'] = by_path
     print(card)

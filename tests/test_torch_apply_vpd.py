@@ -27,6 +27,7 @@ from vpd_tpu.data.shards import pack_crops
 from vpd_tpu.infer import apply_vpd as japply
 from vpd_tpu.train.vpd_loop import build_student as jbuild_student
 from vpd_tpu.train.vpd_loop import default_config
+from vpd_tpu_torch.core.mesh import get_mesh
 from vpd_tpu_torch.data import crops as tcrops
 from vpd_tpu_torch.data.shards import ShardReader
 from vpd_tpu_torch.infer import apply_vpd as tapply
@@ -309,17 +310,29 @@ def test_entry_points_need_a_gpu_unless_told_cpu(world):
 
 
 @pytest.mark.parametrize('kw', [{'upload_codec': 'yuv420'},
-                                {'mesh': object()}])
+                                {'mesh': 'world 1'}])
 def test_unported_options_raise(world, kw):
-    """The multi-device fan-out (ROADMAP A11) still raises. The yuv420
-    upload codec is ported: both packages extract with it from PNGs, at
-    the float32 bar (tests/test_torch_upload_codec.py covers shards)."""
-    _, crop_dir, dirs = world
+    """Both options are ported. The yuv420 upload codec: both packages
+    extract with it from PNGs, at the float32 bar
+    (tests/test_torch_upload_codec.py covers shards). The data mesh
+    (`core/mesh.py`): at world 1 its fan-out writes the files of the run
+    without it, byte for byte (tests/test_torch_mesh_tasks.py runs two
+    ranks)."""
+    root, crop_dir, dirs = world
     videos, tasks = tapply.scan_crop_dir(crop_dir)
     if 'mesh' in kw:
-        with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-            tapply.apply_vpd(videos, tasks, dirs[False], '/nonexistent',
-                             device='cpu', **kw)
+        prepared = tapply.load_student_dir(dirs[False], dtype=torch.float32,
+                                           device='cpu')
+        outs = []
+        for mesh in (None, get_mesh('cpu')):
+            outs.append(str(root / 'mesh_{}'.format(mesh is not None)))
+            tapply.apply_vpd(videos, tasks, dirs[False], outs[-1],
+                             batch_size=5, prepared=prepared, mesh=mesh,
+                             device='cpu', log=lambda *a: None)
+        for v in VIDEOS:
+            a, b = (open(os.path.join(d, v + '.emb.pkl'), 'rb').read()
+                    for d in outs)
+            assert a == b, v
         return
     port, ref = run_both(world, True, 'yuv420', jnp.float32, torch.float32,
                          **kw)

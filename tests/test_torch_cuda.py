@@ -59,6 +59,17 @@ The EfficientNet student (no hand kernel: cuDNN depthwise and pointwise
 convolutions): eval forward and one train step in float32 on cuda against
 the CPU with TF32 off, on the same dropout masks (the train-step bars
 above), and the bf16 step without a host sync.
+
+The device mesh (`core/mesh.py`) as one card can run it, two gloo ranks
+sharing the card (NCCL refuses two ranks on one GPU): the synced
+BatchNorm against one process on the concatenated batch (float32, rtol
+1e-5), and the student's step against one process on the same batch and
+draws, TF32 off: in float32 the loss (rel 1e-5) and BN statistics (rtol
+1e-4), in float64 each gradient before AdamW (within 1e-3 of its norm
+plus 1e-6 of the whole's; in float32 any change in how BatchNorm's
+statistics are summed, its code or the batch's split, moves a deep
+ResNet's early conv gradients past that bar at random init). The epoch
+metrics' sums over a one-rank NCCL group (NCCL takes no host tensor).
 """
 
 import copy
@@ -1063,3 +1074,73 @@ def test_effnet_step_and_eval_on_card_match_cpu(cuda_device):
     losses = torch.stack(losses).tolist()
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+# ---------------------------------------------------------------- mesh
+
+def _two_ranks(fn, *args):
+    from vpd_tpu_torch.core.mesh import spawn_ranks
+    return spawn_ranks(fn, 2, *args, device='cuda:0', backend='gloo',
+                       timeout=300)
+
+
+@pytest.mark.cuda
+def test_epoch_sums_run_on_an_nccl_group(cuda_device):
+    import torch_mesh_workers as W
+    from vpd_tpu_torch.core.mesh import spawn_ranks
+
+    (got,) = spawn_ranks(W.epoch_sums_over_world, 1, device='cuda:0',
+                         backend='nccl', timeout=300)
+    assert got['backend'] == 'nccl'
+    assert got['scalar'] == 5. and got['array'] == [1., 2.]
+    assert got['epoch'] == {'loss': 1.5, 'contra': 0.5,
+                            'per_dataset': {0: 1., 1: 0.5}}
+
+
+@pytest.mark.cuda
+def test_synced_batchnorm_on_two_ranks_of_one_card(cuda_device):
+    import torch_mesh_workers as W
+    from vpd_tpu_torch.core.mesh import get_mesh
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(1., 2., (8, 16, 6, 6)).astype(np.float32)
+    gy = rng.normal(size=x.shape).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, 16).astype(np.float32)
+    b = rng.normal(size=16).astype(np.float32)
+    ranks = _two_ranks(W.synced_bn, x, w, b, gy)
+    one = W.synced_bn(get_mesh(cuda_device), x, w, b, gy)
+    for key in ('y', 'gx'):
+        np.testing.assert_allclose(np.concatenate([r[key] for r in ranks]),
+                                   one[key], rtol=1e-5, atol=1e-5)
+    for key in ('gw', 'gb'):
+        np.testing.assert_allclose(sum(r[key] for r in ranks), one[key],
+                                   rtol=1e-5, atol=1e-5)
+    for key in ('mean', 'var'):
+        np.testing.assert_allclose(ranks[1][key], one[key], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_student_step_on_two_ranks_of_one_card(cuda_device):
+    import torch_mesh_workers as W
+    from vpd_tpu_torch.core.mesh import get_mesh
+
+    rng = np.random.default_rng(1)
+    b = 16
+    batch = {'rgb': rng.integers(0, 256, (b, 32, 32, 3), np.uint8),
+             'flow': rng.integers(0, 256, (b, 32, 32, 3), np.uint8),
+             'mask': ((rng.random((b, 32, 32)) > .5) * 255).astype(np.uint8),
+             'emb': rng.normal(size=(b, 8)).astype(np.float32),
+             'flip': rng.random(b) < 0.5}
+    ranks = _two_ranks(W.card_student_step, batch)
+    one = W.card_student_step(get_mesh(cuda_device), batch)
+    loss = ranks[0]['loss'] + ranks[1]['loss']
+    assert abs(loss - one['loss']) <= 1e-5 * abs(one['loss'])
+    for k, t in one['stats'].items():
+        np.testing.assert_allclose(ranks[0]['stats'][k], t, rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    ranks = _two_ranks(W.card_student_step, batch, torch.float64)
+    one = W.card_student_step(get_mesh(cuda_device), batch, torch.float64)
+    whole = np.sqrt(sum(np.sum(g ** 2) for g in one['grads'].values()))
+    for k, g in one['grads'].items():
+        assert np.linalg.norm(ranks[0]['grads'][k] - g) <= \
+            1e-3 * np.linalg.norm(g) + 1e-6 * whole, k

@@ -537,8 +537,9 @@ def test_train_step_seeds_masks_only_for_a_student_that_draws(
     batch = {k: torch.as_tensor(v) for k, v in _Source().next_batch().items()}
     assert np.isfinite(float(step(state, batch, 5)['emb_loss_sum']))
     assert state.draws_dropout == (arch == 'effnet0')
-    assert calls == ([(torch.device('cpu'), 5, 0)] if arch == 'effnet0'
-                     else [])
+    # (device, seed, step, this rank's part of the global batch)
+    assert calls == ([(torch.device('cpu'), 5, 0, (0, 1))]
+                     if arch == 'effnet0' else [])
 
 def test_cli_trains_and_resumes_an_effnet_student(short_blocks, tmp_path,
                                                   monkeypatch):

@@ -238,8 +238,12 @@ def test_cli_guards(pair_tree, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match='pass one or the other'):
         tcli.main(pair_tree, 'g', model=str(ckpt), raft_weights=str(ckpt),
                   device='cpu', **kw)
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-        tcli.main(pair_tree, 'g', data_parallel=True, device='cpu', **kw)
+    # --data_parallel outside torchrun on a host with several GPUs
+    monkeypatch.delenv('WORLD_SIZE', raising=False)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 2)
+    with pytest.raises(SystemExit, match='torchrun'):
+        tcli.main(pair_tree, 'g', data_parallel=True, **kw)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tcli.main(pair_tree, 'g', **kw)

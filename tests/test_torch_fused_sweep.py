@@ -5,7 +5,8 @@ recognition protocol and CLI with the sequence heads, on the CPU.
   atol 2e-5, the bar of tests/test_fused_sweep.py), with dropout on, a
   partial last batch and a validation set; under early termination on
   train accuracy, under the val-stall break and without a validation set.
-  A member that misses a class raises, and so does a mesh.
+  A member that misses a class raises; a world-1 mesh trains the same
+  members.
 - `run_action_recognition` with `gru`, fused and sequential, writes the
   same `test_pred.csv` files.
 - The recognize CLI with its default algorithm (gru, fused) on the fs
@@ -25,6 +26,7 @@ from test_torch_heads import pool
 from test_torch_recognize import (CATS, QUIET, assert_same_csvs, cli_kwargs,
                                   corpus, fs_corpus)
 from vpd_tpu.tools import recognize as jcli
+from vpd_tpu_torch.core.mesh import get_mesh
 from vpd_tpu_torch.tasks import recognize as trec
 from vpd_tpu_torch.tools import recognize as tcli
 from vpd_tpu_torch.train.classifier import SeqModelTrainer
@@ -114,13 +116,20 @@ def test_fused_no_validation_returns_final_params():
 
 
 def test_fused_rejects_member_missing_a_class_and_a_mesh():
+    """A member that misses a class raises. The mesh is ported: at world
+    1 it leaves the members on this process, as vpd_tpu's one-device mesh
+    does, and trains the same members (two ranks:
+    tests/test_torch_mesh_ensembles.py)."""
     X, y = pool(n=4)
     with pytest.raises(ValueError, match='every class'):
         FusedSweepTrainer('gru', X, y, [list(range(12)), [0, 1, 4, 5]],
                           **COMMON)
-    with pytest.raises(NotImplementedError, match='A11'):
-        FusedSweepTrainer('gru', X, y, [list(range(12))], mesh=object(),
-                          **COMMON)
+    rows = [list(range(12)), [0, 1, 4, 5, 8, 9]]
+    kw = dict(COMMON, num_epochs=2)
+    plain = FusedSweepTrainer('gru', X, y, rows, **kw)
+    meshed = FusedSweepTrainer('gru', X, y, rows, mesh=get_mesh('cpu'), **kw)
+    for mi in range(2):
+        _close(meshed.member(mi)[0], plain.member(mi)[0])
 
 
 def test_run_action_recognition_fused_equals_sequential(tmp_path):

@@ -24,6 +24,7 @@ from vpd_tpu.datasets.metadata_cache import load_meta_cache
 from vpd_tpu.tasks import neighbors as jnb
 from vpd_tpu.tasks import recognize as jrec
 from vpd_tpu.tools import recognize as jcli
+from vpd_tpu_torch.core.mesh import get_mesh
 from vpd_tpu_torch.datasets import load as tload
 from vpd_tpu_torch.datasets import recognition_data as trd
 from vpd_tpu_torch.datasets.eval_splits import FS_TEST_PREFIXES
@@ -213,14 +214,17 @@ def test_run_action_retrieval_matches_vpd_tpu():
 
 
 def test_sequence_heads_raise():
-    """The sequence heads are ported; what they refuse: the mesh (ROADMAP
-    A11), k != 1 and an unknown algorithm. The fused sweep changes nothing
-    for DTW, as in vpd_tpu."""
-    for algorithm in ('lstm', 'dtw'):
-        with pytest.raises(NotImplementedError, match='A11'):
-            trec.run_action_recognition(
-                CATS, {}, {}, None, None, {}, {}, None, algorithm, 1, [-1],
-                '', 8, False, 1, 1, 1, False, mesh=object(), device='cpu')
+    """The sequence heads are ported; what they refuse: k != 1 and an
+    unknown algorithm. The fused sweep changes nothing for DTW, as in
+    vpd_tpu, and neither does the data mesh (vpd_tpu shards no DTW sweep):
+    with a world-1 mesh the DTW protocol gives the run without it."""
+    train_embs, train_labels, test_embs, test_labels, ids = corpus(4)
+    accs = [trec.run_action_recognition(
+        CATS, train_embs, train_labels, None, None, test_embs, test_labels,
+        None, 'dtw', 1, [2, -1], 'ids_{}_{}', 8, False, 1, 1, 2, False,
+        load_action_ids_fn=ids.get, device='cpu', **kw, **QUIET)
+        for kw in ({}, {'mesh': get_mesh('cpu'), 'fused_sweep': True})]
+    assert accs[0] == accs[1] and set(accs[0]) == {2, -1}
     with pytest.raises(ValueError, match='k = 3'):
         trec.run_action_recognition(CATS, {}, {}, None, None, {}, {}, None,
                                     'gru', 3, [-1], '', 8, False, 1, 1, 1,

@@ -9,9 +9,11 @@ Layer map (the ported slices: student feature extraction; DTW
 recognition and retrieval; student training and its input, EfficientNet
 students and the Penn ablation; the teacher; the heads on frozen
 embeddings; optical flow and the upload codec; the data-prep tools from
-video to crops; the reference's torch checkpoints both ways):
+video to crops; the reference's torch checkpoints both ways; several
+GPUs under torchrun):
   core/      io + `.emb.pkl` interchange, flax-msgpack checkpoints, pipeline,
-             single-readback metrics
+             single-readback metrics, the device mesh (process groups,
+             one rank a GPU, `mesh`)
   data/      eval transforms and the train augmentation, crop PNG decode
              (native C++ decoder, cv2, PIL), packed shards and
              pack_crops, training batch sources, prefetch, decode worker
@@ -24,7 +26,7 @@ video to crops; the reference's torch checkpoints both ways):
              quantization; the nvcc and g++ builds
   models/    ResNet and EfficientNet students, FCNet, RAFT, flax weight
              mapping, the reference's torch state_dicts (ImageNet
-             init, import and export)
+             init, import and export), the teacher's tensor parallelism
   train/     student modules, the train step and the epoch loop
   infer/     batched embedding extraction (.emb.pkl writers)
   tasks/     kNN / retrieval over DTW, the few-shot protocol

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.io import EMB_FILE_SUFFIX, load_pickle
+from ..core.mesh import part_rows
 
 DEFAULT_MIN_POSE_SCORE = 0.5
 
@@ -212,13 +213,20 @@ class CropBatchSource:
     same batches in both packages. PNGs (and crops missing from the
     shards) go through `decode_crop_batch` with `use_native`; `decoder`
     names the decoder that runs.
+
+    `batch_part` (i, k) makes the source a rank's of a data mesh: it draws
+    every global batch of `batch_size` rows, as one process does, and
+    decodes and returns block i of k alone.
     """
 
     def __init__(self, samples, img_dir, img_dim, batch_size, *,
                  target_len=20000, flow_img_name=None, use_mask=True,
-                 augment=True, seed=0, use_native=None, shard_dir=None):
+                 augment=True, seed=0, use_native=None, shard_dir=None,
+                 batch_part=(0, 1)):
         if not samples:
             raise ValueError('empty crop dataset')
+        part_rows(batch_size, batch_part)  # the batch must split
+        self.batch_part = batch_part
         self.samples = samples
         self.img_dir = img_dir
         self.img_dim = img_dim
@@ -255,8 +263,25 @@ class CropBatchSource:
                 if player else os.path.join(self.img_dir, video))
         return os.path.join(base, str(frame))
 
+    def _draw(self):
+        """(sample, flip) of every row of a global batch, in vpd_tpu's
+        draw order."""
+        out = []
+        for _ in range(self.batch_size):
+            s = int(self.rng.integers(len(self.samples)))
+            out.append((s, bool(self.augment and self.rng.integers(2))))
+        return out
+
+    def _target(self, s, flip):
+        """The teacher row and the flip of sample `s` drawn with `flip`."""
+        emb = self.samples[s][3]
+        if emb.ndim == 2:  # (orig, flip) teacher rows
+            return emb[int(flip)], flip
+        return emb, False  # no flipped target available
+
     def next_batch(self):
-        b = self.batch_size
+        drawn = self._draw()[part_rows(self.batch_size, self.batch_part)]
+        b = len(drawn)
         s = self.img_dim
         rgb = np.zeros((b, s, s, 3), np.uint8)
         flow = (np.zeros((b, s, s, 3), np.uint8)
@@ -265,15 +290,9 @@ class CropBatchSource:
         embs = []
         flips = np.zeros(b, bool)
         prefixes = []
-        for i in range(b):
-            video, player, frame, emb = self.samples[
-                self.rng.integers(len(self.samples))]
-            flip = bool(self.augment and self.rng.integers(2))
-            if emb.ndim == 2:  # (orig, flip) teacher rows
-                emb = emb[int(flip)]
-            elif flip:
-                flip = False  # no flipped target available
-            flips[i] = flip
+        for i, (si, flip) in enumerate(drawn):
+            video, player, frame, _ = self.samples[si]
+            emb, flips[i] = self._target(si, flip)
             prefixes.append(self._prefix(video, player, frame))
             embs.append(emb)
         if self.shards is not None:

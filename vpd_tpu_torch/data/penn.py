@@ -75,9 +75,13 @@ class PennBatchSource:
     """
 
     def __init__(self, samples, frame_dir, img_dim, batch_size, *,
-                 target_len=20000, seed=0):
+                 target_len=20000, seed=0, batch_part=(0, 1)):
+        """`batch_part` (i, k): draw each global batch of `batch_size`
+        and cut the crops of block i of k alone (a rank of a data
+        mesh)."""
         if not samples:
             raise ValueError('no Penn samples')
+        self.batch_part = batch_part
         self.samples = samples
         self.frame_dir = frame_dir
         self.img_dim = img_dim
@@ -90,14 +94,16 @@ class PennBatchSource:
         return max(1, self.target_len // self.batch_size)
 
     def next_batch(self):
+        from ..core.mesh import part_rows
+
         b, s = self.batch_size, self.img_dim
-        rgb = np.zeros((b, s, s, 3), np.uint8)
+        drawn = [self.samples[self.rng.integers(len(self.samples))]
+                 for _ in range(b)][part_rows(b, self.batch_part)]
+        rgb = np.zeros((len(drawn), s, s, 3), np.uint8)
         embs = []
-        for i in range(b):
-            seq, frame, is_flip, emb, box = self.samples[
-                self.rng.integers(len(self.samples))]
+        for i, (seq, frame, is_flip, emb, box) in enumerate(drawn):
             rgb[i] = load_penn_crop(self.frame_dir, seq, frame, box, s,
                                     flip=is_flip)
             embs.append(emb)
         return {'rgb': rgb, 'emb': np.stack(embs).astype(np.float32),
-                'flip': np.zeros(b, bool)}
+                'flip': np.zeros(len(drawn), bool)}

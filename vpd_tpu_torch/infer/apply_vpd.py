@@ -18,11 +18,15 @@ transforms instead, as vpd_tpu builds them without its Pallas kernel.
 `upload_codec='yuv420'` ships the rgb stream as packed YUV 4:2:0 planes
 (`data/upload_codec.py`, half the bytes): packed on the host, or gathered
 packed from yuv420 shards, and decoded on the card before the preprocess.
-Flow planes ship raw. Not ported yet, and raising NotImplementedError:
-the multi-device fan-out (A11).
+Flow planes ship raw.
+
+On a data mesh (`mesh`, one process per GPU under torchrun) the ranks
+split the chunks, chunk i going to rank i mod n: each rank decodes and
+embeds its chunks on its own card (kernel B1 included; jitter draws are
+keyed by the global chunk index), and rank 0 gathers the rows and writes
+every `.emb.pkl`, so the files equal a one-process run's.
 """
 
-import itertools
 import os
 import re
 
@@ -32,6 +36,7 @@ import torch
 from .. import resolve_device
 from ..core import checkpoint as ckpt
 from ..core.io import load_json, store_pickle
+from ..core.mesh import gather_object
 from ..core.pipeline import run_pipelined
 from ..data.augment import (batch_color_jitter, eval_transform_batch,
                             flip_batch, normalize_rgb, sample_color_jitter)
@@ -44,12 +49,6 @@ from ..train.vpd import fold_in
 from ..train.vpd_loop import build_student
 
 EXTRACT_BATCH = 512
-
-
-def _not_ported(mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            'the multi-device fan-out is not ported yet (ROADMAP A11)')
 
 
 def _check_codec(upload_codec):
@@ -243,11 +242,12 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
     `upload_codec='yuv420'` packs RGB on the host (half the bytes) and
     decodes it on the device; `embed_fn`, if given, must be built with the
     same codec. Shards packed with `--codec yuv420` are gathered packed
-    and need `upload_codec='yuv420'`.
+    and need `upload_codec='yuv420'`. `mesh` (`core.mesh`) fans the
+    chunks out over its ranks, each on the mesh's device; rank 0 writes.
     """
-    _not_ported(mesh)
     yuv420 = _check_codec(upload_codec)
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     model, config = (prepared if prepared is not None
                      else load_student_dir(model_dir, model_epoch,
                                            device=device))
@@ -301,12 +301,16 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
             np.copyto(rgb.numpy(), encode_yuv420(rgb_np))
         return rgb, flow
 
-    chunk_counter = itertools.count()
+    chunks = [tasks[i:i + batch_size]
+              for i in range(0, len(tasks), batch_size)]
+    # this rank's chunks, by global index (the jitter draws' key)
+    mine = list(range(rank, len(chunks), world))
+    chunk_ids = iter(mine)
 
     def compute(host):
         # runs sequentially on the calling thread (run_pipelined)
         rgb, flow = host
-        chunk_i = next(chunk_counter)
+        chunk_i = next(chunk_ids)
         if not on_cuda:
             return embed(rgb, flow, chunk_i), None
         # upload on a side stream so it overlaps the previous chunk's
@@ -325,20 +329,30 @@ def apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=None,
         done.record(compute_stream)
         return out, done
 
-    all_embs = [[] for _ in videos]
+    outs = []
 
     def collect(chunk, result):
         dev_out, done = result
         if done is not None:
             done.synchronize()  # the chunk's stream is done with the output
-        embs = dev_out.float().cpu().numpy()
+        outs.append(dev_out.float().cpu().numpy())
+
+    run_pipelined([chunks[i] for i in mine], decode_chunk, compute, collect)
+    gathered = gather_object(outs, mesh)
+    if gathered is None:  # rank > 0: rank 0 writes
+        return
+    # astype: an array unpickled from another rank carries its own copy
+    # of the float32 dtype, which the .emb.pkl pickle would then repeat;
+    # the canonical one keeps the files byte-equal to a one-process run's
+    by_chunk = {i: embs.astype(np.float32)
+                for r, rank_outs in enumerate(gathered)
+                for i, embs in zip(range(r, len(chunks), world), rank_outs)}
+    all_embs = [[] for _ in videos]
+    for i, chunk in enumerate(chunks):
+        embs = by_chunk[i]
         for j, (video_id, frame_num, _) in enumerate(chunk):
             row = embs[j] if embs.shape[1] > 1 else embs[j, 0]
             all_embs[video_id].append((frame_num, row, {}))
-
-    chunks = [tasks[i:i + batch_size]
-              for i in range(0, len(tasks), batch_size)]
-    run_pipelined(chunks, decode_chunk, compute, collect)
 
     os.makedirs(out_dir, exist_ok=True)
     written = 0

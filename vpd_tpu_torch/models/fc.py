@@ -18,12 +18,41 @@ BatchNorm is `FlaxBatchNorm1d` (momentum 0.9, eps 1e-5, the biased
 variance into the running statistics) and dropout is flax's inverted
 dropout (`FlaxDropout`), whose keep mask the train step draws from a
 seeded generator (`set_dropout_draw`).
+
+Each module's `columns` says where its layers' output columns live:
+`WHOLE` keeps them on this process; `models/tensor_parallel.py` swaps in
+a model group that splits them, and the forwards below then enter a
+split layer and gather its full rows through it.
 """
 
 import torch
 from torch import nn
 
 from .resnet import FlaxBatchNorm1d
+
+
+class Columns:
+    """Where a layer's output columns live: this one keeps every layer
+    whole, so `enter` and `gather` pass their input through.
+    `enter(x, layer)` is x on its way into `layer`, `gather(y, layer)`
+    the full rows of `layer`'s output y."""
+
+    def enter(self, x, layer):
+        return x
+
+    def gather(self, y, layer):
+        return y
+
+    def dense(self, x, layer, *then):
+        """`layer` on x, then each of `then` on the columns it
+        computes, gathered whole."""
+        y = layer(self.enter(x, layer))
+        for fn in then:
+            y = fn(y)
+        return self.gather(y, layer)
+
+
+WHOLE = Columns()
 
 
 def _dense(in_dim, out_dim):
@@ -90,12 +119,13 @@ class FCNet(nn.Module):
         self.layers = nn.ModuleList(
             _dense(a, b) for a, b in zip(dims[:-1], dims[1:]))
         self.dropout = FlaxDropout(dropout)
+        self.columns = WHOLE
 
     def forward(self, x):
-        x = self.layers[0](x)
+        x = self.columns.dense(x, self.layers[0])
         last = len(self.layers) - 1
         for k in range(1, last + 1):
-            x = self.layers[k](x.relu())
+            x = self.columns.dense(x.relu(), self.layers[k])
             if k < last:
                 x = self.dropout(x)
         return x
@@ -111,11 +141,12 @@ class FcResidualBlock(nn.Module):
         self.bn = nn.ModuleList(FlaxBatchNorm1d(hidden_dim)
                                 for _ in range(2))
         self.dropout = FlaxDropout(dropout)
+        self.columns = WHOLE
 
     def forward(self, x):
         h = x
         for dense, bn in zip(self.dense, self.bn):
-            h = self.dropout(bn(dense(h)).relu())
+            h = self.dropout(self.columns.dense(h, dense, bn).relu())
         return h - x
 
 
@@ -132,12 +163,14 @@ class FCResNet(nn.Module):
                                     for _ in range(num_blocks))
         self.out = _dense(hidden_dim, out_dim) if out_dim is not None \
             else None
+        self.columns = WHOLE
 
     def forward(self, x):
-        x = self.stem(x).relu()
+        x = self.columns.dense(x, self.stem).relu()
         for block in self.blocks:
             x = block(x)
-        return self.out(x) if self.out is not None else x
+        return (self.columns.dense(x, self.out) if self.out is not None
+                else x)
 
 
 class _MultiHead(nn.Module):
@@ -154,9 +187,12 @@ class _MultiHead(nn.Module):
             torch.randn(num_heads, in_dim, head_dim)
             * (num_heads * in_dim) ** -0.5)
         self.bias = nn.Parameter(torch.zeros(num_heads, head_dim))
+        self.columns = WHOLE
 
     def forward(self, x, dataset_id):
-        all_heads = torch.einsum('nh,khd->nkd', x, self.kernel) + self.bias
+        c = self.columns
+        all_heads = c.gather(torch.einsum(
+            'nh,khd->nkd', c.enter(x, self), self.kernel) + self.bias, self)
         idx = dataset_id.to(torch.long)[:, None, None].expand(
             -1, 1, all_heads.shape[-1])
         return all_heads.gather(1, idx).squeeze(1)

@@ -20,7 +20,10 @@ defaults of `FlaxBatchNorm2d`; EfficientNet passes 0.99 and 1e-3), not
 torch's: in train mode it normalizes with the biased batch variance and
 updates `running = 0.9 * running + (1 - 0.9) * stat` with the biased
 variance too (torch would fold in the unbiased one). Eval uses the stored
-running statistics as they are.
+running statistics as they are. On a data mesh (`set_bn_sync`) the train
+mode's statistics are those of the global batch, as jit over vpd_tpu's
+mesh gives them (`bn_axis_name`): the per-channel sums travel over the
+data group.
 
 `expand_stem_to_channels` reproduces the reference's 5-channel first-conv
 surgery (`models/rgb.py:8-37`) on a module: the stem kernel is averaged
@@ -54,10 +57,13 @@ class _FlaxBatchNorm:
         """`momentum` is flax's (the share of the running statistics
         kept), not torch's."""
         super().__init__(channels, eps=eps, momentum=1 - momentum)
+        self.sync_group = _Group(None)
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.sync_group.group is not None:
+            return self._synced_forward(x)
         # momentum 1 writes this batch's mean and unbiased variance into
         # the temporaries, which is how F.batch_norm hands them out
         mean = torch.zeros_like(self.running_mean)
@@ -71,6 +77,53 @@ class _FlaxBatchNorm:
             self.running_var.copy_(m * self.running_var
                                    + (1 - m) * (var * ((n - 1) / n)))
         return y
+
+    def _synced_forward(self, x):
+        """Train mode over the global batch: the per-channel sum, sum of
+        squares and count are summed over the data group in float32 (or
+        wider) by a differentiable all-reduce, whose backward sums the
+        statistics' gradients (the loss is a sum over ranks). The
+        variance is flax's fast one, max(0, E[x^2] - E[x]^2)."""
+        from ..core.mesh import differentiable_all_reduce
+
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        stats = differentiable_all_reduce(torch.cat([
+            xf.sum(dims), (xf * xf).sum(dims),
+            xf.new_full((1,), x.numel() // c)]), self.sync_group.group)
+        mean = stats[:c] / stats[2 * c]
+        var = torch.clamp(stats[c:2 * c] / stats[2 * c] - mean * mean, min=0)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        scale = self.weight.to(xf.dtype) * torch.rsqrt(var + self.eps)
+        y = ((xf - mean.view(shape)) * scale.view(shape)
+             + self.bias.to(xf.dtype).view(shape))
+        m = 1 - self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1 - m) * mean.detach())
+            self.running_var.copy_(m * self.running_var
+                                   + (1 - m) * var.detach())
+        return y.to(x.dtype)
+
+
+class _Group:
+    """A process group held by a module: copies of the module share it
+    (a process group cannot be copied)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+def set_bn_sync(model, group):
+    """Make every flax BatchNorm of `model` take its train statistics over
+    `group` (a data group; None: this rank's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, _FlaxBatchNorm):
+            m.sync_group = _Group(group)
 
 
 class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):

@@ -14,8 +14,11 @@ columns. The host `KnnModel` stays for parity tests. The sequence heads
 train on the device (`train/classifier.py`); with `fused_sweep` every
 trial of a few-shot size trains as one member of one batched model
 (`train/fused_sweep.py`), and a head scores all test actions in one
-forward per length bucket. The device mesh is not ported (ROADMAP A11)
-and raises NotImplementedError.
+forward per length bucket. On a data mesh (`mesh`, several ranks under
+torchrun) the fused sweep splits its trials over the ranks
+(`train/fused_sweep.py`); every rank runs the rest of the protocol on
+the gathered members, and only the primary rank writes `out_dir`. The
+DTW sweeps are not sharded, as in vpd_tpu.
 """
 
 import csv
@@ -31,13 +34,6 @@ from .neighbors import KNearestNeighbors, batch_distances, make_dtw_fns
 
 KNN_MODELS = ['dtw']
 SEQ_MODELS = ['lstm', 'gru', 'cnn']
-
-
-def not_ported(what, item):
-    """The error for a part of vpd_tpu this package does not have yet."""
-    return NotImplementedError(
-        '{} is not ported to vpd_tpu_torch yet (ROADMAP {}); use '
-        'vpd_tpu for it'.format(what, item))
 
 
 def _expand_flip_rows(all_embs, labels, class_index=None):
@@ -273,7 +269,8 @@ def sample_embeddings(embs, labels, n, keep_ratio=False, seed=None):
 
 
 def _train_fused_sweep(subsets, train_embs, train_labels, val_embs,
-                       val_labels, algorithm, trainer_kwargs, log):
+                       val_labels, algorithm, trainer_kwargs, log,
+                       mesh=None):
     """Train every trial of one few-shot size as the members of one model
     (`train/fused_sweep.py`). Returns per-trial (params, batch_stats)
     presets, or None when the subsets are not fusable: a trial that does
@@ -299,7 +296,7 @@ def _train_fused_sweep(subsets, train_embs, train_labels, val_embs,
     try:
         fused = FusedSweepTrainer(
             algorithm, X_pool, y_pool, member_rows, X_val=X_val,
-            y_val=y_val, log=log, **trainer_kwargs)
+            y_val=y_val, log=log, mesh=mesh, **trainer_kwargs)
     except ValueError as exc:
         log('fused sweep fallback to sequential trials: {}'.format(exc))
         return None
@@ -322,8 +319,9 @@ def run_action_recognition(
     cnn) train on `device`, one per trial, or with `fused_sweep` all
     trials of a few-shot size as one batched model (sizes that are not
     fusable fall back to sequential trials); `load_weights` loads one
-    saved head for every trial instead of training. The mesh raises
-    NotImplementedError (ROADMAP A11). When `stats` is a dict it receives,
+    saved head for every trial instead of training. `mesh` splits the
+    fused sweep's trials over its ranks; only its primary rank writes
+    `out_dir`. When `stats` is a dict it receives,
     for DTW, the index (`index`), the seconds spent building it
     (`index_seconds`) and the host voting seconds per few-shot size
     (`vote_seconds`); for a sequence head, the training seconds
@@ -334,13 +332,14 @@ def run_action_recognition(
     del device_knn
     if algorithm not in KNN_MODELS + SEQ_MODELS:
         raise ValueError('unknown algorithm {!r}'.format(algorithm))
-    if mesh is not None:
-        raise not_ported('the device mesh', 'A11')
     from .. import resolve_device
+    from ..core.mesh import is_primary
     from ..datasets.load import load_action_ids
     if load_action_ids_fn is None:
         load_action_ids_fn = load_action_ids
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    if not is_primary():
+        out_dir = None
     seq_model = algorithm in SEQ_MODELS
     if seq_model and k != 1:
         raise ValueError('sequence heads vote with k = 1, got k = {}'
@@ -449,7 +448,7 @@ def run_action_recognition(
                 and n_trials > 1):
             presets = _train_fused_sweep(
                 subsets, train_embs, train_labels, val_embs, val_labels,
-                algorithm, seq_kwargs, log)
+                algorithm, seq_kwargs, log, mesh=mesh)
         if stats is not None and seq_model:
             stats['fused'][ne] = presets is not None
             stats['train_seconds'][ne] = time.perf_counter() - t0

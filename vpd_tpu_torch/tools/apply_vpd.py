@@ -7,10 +7,19 @@ Same flags as `python -m vpd_tpu.tools.apply_vpd`, plus `--device`, minus
 
     python -m vpd_tpu_torch.tools.apply_vpd <model_dir> -d fs -o <out_dir>
         [--crop_shards <shards>] [--upload_codec yuv420]
+
+`--data_parallel` fans the chunks out over the GPUs, one process each:
+
+    torchrun --nproc_per_node N -m vpd_tpu_torch.tools.apply_vpd \
+        <model_dir> -d fs -o <out_dir> --data_parallel
+
+On one GPU (or with `--device cpu`) it runs as world 1; on a host with
+several GPUs it refuses to run outside torchrun.
 """
 
 import argparse
 
+from ..core.mesh import distributed, refuse_devices_without_torchrun
 from ..data.upload_codec import CODECS
 from ..infer.apply_vpd import apply_vpd, scan_crop_dir, scan_tennis_crop_dir
 from . import paths
@@ -46,8 +55,9 @@ def get_args():
                              'decodes it on the device; required for '
                              'shards packed with --codec yuv420')
     parser.add_argument('--data_parallel', action='store_true',
-                        help='multi-GPU fan-out: not ported yet '
-                             '(ROADMAP A11)')
+                        help='split the chunks over the GPUs, one '
+                             'process each (launch with torchrun); rank 0 '
+                             'writes the .emb.pkl files')
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device (default cuda; cpu runs the '
                              'plain PyTorch path)')
@@ -57,9 +67,33 @@ def get_args():
 def main(model_dir, dataset, out_dir, model_epoch, jitter, no_flip,
          flow_img, batch_size, crop_shards=None, upload_codec='raw',
          data_parallel=False, device='cuda'):
-    if data_parallel:
-        raise NotImplementedError(
-            '--data_parallel is not ported yet (ROADMAP A11)')
+    # reference batch scaling (`apply_vpd_model.py:145-149`): divide the
+    # base batch by the jitter variants and double it when flips are off,
+    # which keeps device memory constant as the variant count changes
+    batch_size = batch_size // (jitter + 1)
+    if no_flip:
+        batch_size *= 2
+    kwargs = dict(model_epoch=model_epoch, flow_img_name=flow_img,
+                  jitter=jitter, no_flip=no_flip, batch_size=batch_size,
+                  upload_codec=None if upload_codec == 'raw'
+                  else upload_codec, device=device)
+    if not data_parallel:
+        _extract(model_dir, dataset, out_dir, crop_shards, **kwargs)
+        print('Done!')
+        return
+    refuse_devices_without_torchrun(device)
+    with distributed(device) as mesh:
+        if batch_size % mesh.world:
+            raise SystemExit(
+                '--batch_size {} (after variant scaling) must be divisible '
+                'by the {} ranks'.format(batch_size, mesh.world))
+        _extract(model_dir, dataset, out_dir, crop_shards, mesh=mesh,
+                 **kwargs)
+        if mesh.rank == 0:
+            print('Done!')
+
+
+def _extract(model_dir, dataset, out_dir, crop_shards, **kwargs):
     if dataset == 'tennis':
         crop_dir = paths.TENNIS_CROP_DIR
         videos, tasks = scan_tennis_crop_dir(
@@ -68,25 +102,12 @@ def main(model_dir, dataset, out_dir, model_epoch, jitter, no_flip,
         crop_dir = {'fs': paths.FS_CROP_DIR, 'fx': paths.FX_CROP_DIR,
                     'diving48': paths.DIVING48_CROP_DIR}[dataset]
         videos, tasks = scan_crop_dir(crop_dir)
-
-    # reference batch scaling (`apply_vpd_model.py:145-149`): divide the
-    # base batch by the jitter variants and double it when flips are off,
-    # which keeps device memory constant as the variant count changes
-    batch_size = batch_size // (jitter + 1)
-    if no_flip:
-        batch_size *= 2
-
     shard_reader = None
     if crop_shards:
         from ..data.shards import ShardReader
         shard_reader = ShardReader(crop_shards, crop_root=crop_dir)
-
-    apply_vpd(videos, tasks, model_dir, out_dir, model_epoch=model_epoch,
-              flow_img_name=flow_img, jitter=jitter, no_flip=no_flip,
-              batch_size=batch_size, shard_reader=shard_reader,
-              upload_codec=None if upload_codec == 'raw' else upload_codec,
-              device=device)
-    print('Done!')
+    apply_vpd(videos, tasks, model_dir, out_dir, shard_reader=shard_reader,
+              **kwargs)
 
 
 if __name__ == '__main__':

@@ -21,7 +21,12 @@ Decode runs one chunk ahead and PNG writes one chunk behind
 quantized to uint8 on the card before the readback. `--upload_codec`
 shrinks the upload: `yuv420` (half the bytes, lossy chroma, any model)
 or `y8` (the luma plane alone, `--model lk` only), both decoded on the
-card. `--data_parallel` (the multi-GPU fan-out) is not ported yet.
+card. `--data_parallel` splits the chunks over the GPUs, one process
+each (`torchrun --nproc_per_node N -m vpd_tpu_torch.tools.compute_flow
+... --data_parallel`): rank 0 lists the pairs, chunk i goes to rank i mod
+n, and each rank writes its chunks' PNGs. On one GPU (or the CPU) it runs
+as world 1; on a host with several GPUs it refuses to run outside
+torchrun.
 """
 
 import argparse
@@ -33,6 +38,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.mesh import (barrier, broadcast_object, distributed,
+                         refuse_devices_without_torchrun)
 from ..core.pipeline import run_pipelined
 from ..data.crops import decode_crop_batch
 from ..data.upload_codec import (FLOW_CODECS, decode_yuv420, encode_luma,
@@ -74,8 +81,8 @@ def get_args(argv=None):
                              'ignored: the correlation volume is already '
                              'one batched product')
     parser.add_argument('--data_parallel', action='store_true',
-                        help='multi-GPU fan-out: not ported yet '
-                             '(ROADMAP A11)')
+                        help='split the chunks over the GPUs, one '
+                             'process each (launch with torchrun)')
     parser.add_argument('--upload_codec', choices=FLOW_CODECS,
                         default='raw',
                         help='host->device frame encoding: yuv420 halves '
@@ -136,20 +143,45 @@ def main(path, out_name, clip, img_dim, batch_size, overwrite,
          raft_iters=20, small=False, mixed_precision=True,
          alternate_corr=False, upload_codec='raw', data_parallel=False,
          device='cuda'):
-    """Returns the number of pairs written."""
-    if data_parallel:
-        raise NotImplementedError(
-            '--data_parallel is not ported yet (ROADMAP A11)')
+    """Returns the number of pairs written (by all ranks)."""
+    kwargs = dict(subtract_median_flag=subtract_median_flag, model=model,
+                  raft_weights=raft_weights, raft_iters=raft_iters,
+                  small=small, mixed_precision=mixed_precision,
+                  alternate_corr=alternate_corr, upload_codec=upload_codec)
+    if not data_parallel:
+        return _run(path, out_name, clip, img_dim, batch_size, overwrite,
+                    device=device, **kwargs)
+    refuse_devices_without_torchrun(device)
+    with distributed(device) as mesh:
+        if batch_size % mesh.world:
+            raise SystemExit(
+                '--batch_size {} must be divisible by the {} ranks for the '
+                'batch-dim fan-out'.format(batch_size, mesh.world))
+        return _run(path, out_name, clip, img_dim, batch_size, overwrite,
+                    mesh=mesh, **kwargs)
+
+
+def _run(path, out_name, clip, img_dim, batch_size, overwrite,
+         subtract_median_flag=False, model='lk', raft_weights=None,
+         raft_iters=20, small=False, mixed_precision=True,
+         alternate_corr=False, upload_codec='raw', device='cuda',
+         mesh=None):
     del alternate_corr  # the corr volume is already one batched product
     model, raft_weights = _resolve_model(model, raft_weights)
     if upload_codec == 'y8' and model != 'lk':
         raise SystemExit(
             '--upload_codec y8 ships luma only, which is valid for the '
             'luminance-only --model lk (RAFT consumes RGB; use yuv420)')
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     out_suffix = '.{}.png'.format(out_name)
-    pairs = get_pairs(path, out_suffix, overwrite)
-    print('{} frame pairs to process'.format(len(pairs)))
+    # one listing for every rank: no rank sees another's new PNGs
+    pairs = (get_pairs(path, out_suffix, overwrite) if rank == 0
+             else None)
+    if mesh is not None:
+        pairs = broadcast_object(pairs, mesh)
+    if rank == 0:
+        print('{} frame pairs to process'.format(len(pairs)))
     flow_fn = build_flow_fn(model, raft_weights, raft_iters, small=small,
                             mixed_precision=mixed_precision, device=device)
     if upload_codec == 'yuv420':
@@ -228,13 +260,18 @@ def main(path, out_name, clip, img_dim, batch_size, overwrite,
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(
             max_workers=min(8, os.cpu_count() or 1)) as writers:
-        run_pipelined([pairs[i:i + batch_size]
-                       for i in range(0, len(pairs), batch_size)],
-                      decode_chunk, compute, write_chunk)
-    print('{} pairs in {:.3f} s'.format(len(pairs), time.perf_counter() - t0))
-    if encode is not None:
-        print('upload packer batches: {}'.format(dict(packer_calls)))
-    print('Done!')
+        chunks = [pairs[i:i + batch_size]
+                  for i in range(0, len(pairs), batch_size)]
+        run_pipelined(chunks[rank::world], decode_chunk, compute,
+                      write_chunk)
+    if mesh is not None:
+        barrier()  # every rank's PNGs are written
+    if rank == 0:
+        print('{} pairs in {:.3f} s'.format(len(pairs),
+                                            time.perf_counter() - t0))
+        if encode is not None:
+            print('upload packer batches: {}'.format(dict(packer_calls)))
+        print('Done!')
     return len(pairs)
 
 

@@ -7,7 +7,9 @@ parity: reference `detect.py`).
 Trains the KFold proposal ensemble on `--device` (default cuda; cpu runs
 the same code on the CPU): all members as one batched model unless
 `--sequential_ensemble`. Writes `ap_table.npy` (rows: activation
-thresholds, columns: tIoU 0.1..0.9) to `-o`.
+thresholds, columns: tIoU 0.1..0.9) to `-o`. Under `torchrun
+--nproc_per_node N` the fused ensemble's members split over the N GPUs
+and rank 0 writes `-o`.
 """
 
 import argparse
@@ -17,6 +19,7 @@ import numpy as np
 
 from .. import resolve_device
 from ..core.io import load_text
+from ..core.mesh import distributed, is_primary, torchrun_world
 from ..datasets.load import load_actions, load_embs
 from ..datasets.eval_splits import get_test_prefixes
 from ..datasets.metadata_cache import load_video_metadata
@@ -227,12 +230,23 @@ def main(dataset, k, out_dir, emb_dir, n_trials, algorithm, n_examples,
         model_kwargs['seq_len'] = seq_len
     if sequential_ensemble:
         model_kwargs['fused'] = False
-    trial_results, thresholds = run_localization(
-        dataset, emb_dict, train_labels, test_labels, n_trials=n_trials,
-        algorithm=algorithm, k=k, hidden_dim=hidden_dim,
-        batch_size=batch_size, few_shot_videos_fn=few_shot_videos,
-        n_examples=n_examples, out_dir=out_dir, _all=_all, device=device,
-        **model_kwargs)
+    args = (dataset, emb_dict, train_labels, test_labels)
+    kwargs = dict(n_trials=n_trials, algorithm=algorithm, k=k,
+                  hidden_dim=hidden_dim, batch_size=batch_size,
+                  few_shot_videos_fn=few_shot_videos, n_examples=n_examples,
+                  _all=_all, **model_kwargs)
+    if sequential_ensemble or torchrun_world() == 1:
+        trial_results, thresholds = run_localization(
+            *args, out_dir=out_dir, device=device, **kwargs)
+    else:
+        # under torchrun the fused ensemble's members split over the
+        # ranks; rank 0 writes
+        with distributed(device) as mesh:
+            trial_results, thresholds = run_localization(
+                *args, out_dir=out_dir if is_primary() else None,
+                device=mesh.device, mesh=mesh, **kwargs)
+            if not is_primary():
+                return trial_results, thresholds
 
     mean = np.mean(trial_results, axis=0)
     print('AP table (rows=thresholds {}, cols=tIoU {}):'.format(

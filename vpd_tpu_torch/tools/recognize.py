@@ -14,7 +14,9 @@ few-shot size train as one batched model (the fused sweep) unless
 `--sequential_sweep`; `-w` loads a saved head (either package's) instead
 of training. DTW kNN and retrieval run as one batched sweep (kernel B2 on
 cuda, its plain twin on cpu); `--device_knn` and `--device_retrieval` are
-accepted for flag parity: the sweep is always on.
+accepted for flag parity: the sweep is always on. Under `torchrun
+--nproc_per_node N` the fused sweep's trials split over the N GPUs and
+rank 0 writes `-o`.
 """
 
 import argparse
@@ -22,6 +24,7 @@ import os
 
 from .. import resolve_device
 from ..core.io import load_json
+from ..core.mesh import distributed, torchrun_world
 from ..datasets import diving48, finegym
 from ..datasets.metadata_cache import load_video_metadata
 from ..datasets.recognition_data import (
@@ -188,13 +191,17 @@ def main(emb_dir, dataset, out_dir, algorithm, num_train_examples, norm, k,
     if val_embs is None:
         val_embs, val_labels = test_embs, test_labels
     train_embs = {a: b for a, b in train_embs.items() if b is not None}
-    return run_action_recognition(
-        categories, train_embs, train_labels, val_embs, val_labels,
-        test_embs, test_labels, out_dir, algorithm, k,
-        num_train_examples, few_shot_file, hidden_dim, attn,
-        num_epochs, val_freq, n_trials, no_test_flip,
-        load_weights=load_weights, fused_sweep=not sequential_sweep,
-        device=device, stats=stats)
+    args = (categories, train_embs, train_labels, val_embs, val_labels,
+            test_embs, test_labels, out_dir, algorithm, k,
+            num_train_examples, few_shot_file, hidden_dim, attn,
+            num_epochs, val_freq, n_trials, no_test_flip)
+    kwargs = dict(load_weights=load_weights,
+                  fused_sweep=not sequential_sweep, stats=stats)
+    if sequential_sweep or torchrun_world() == 1:
+        return run_action_recognition(*args, device=device, **kwargs)
+    # under torchrun the fused sweep's trials split over the ranks
+    with distributed(device) as mesh:
+        return run_action_recognition(*args, mesh=mesh, **kwargs)
 
 
 if __name__ == '__main__':

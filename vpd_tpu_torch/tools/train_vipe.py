@@ -10,8 +10,16 @@ Same flags as `python -m vpd_tpu.tools.train_vipe`, plus `--device`
 The mocap families are read from `$VPD_VIPE_DATA_DIR/<family>/` as
 `ground_truth_3d_pose.pkl` + `cocopose/*.json.gz` (`tools/paths.py`).
 `--num_workers N` samples in N spawned worker processes (N // 2 for
-validation), seeded as vpd_tpu seeds its workers. Not ported, and raising
-NotImplementedError: `--tensor_parallel` above 1 (ROADMAP A11).
+validation), seeded as vpd_tpu seeds its workers. On N GPUs, one process
+each, the teacher trains data parallel, and `--tensor_parallel m` splits
+its wide layers by columns over groups of m ranks as well (a (N/m, m)
+grid, `core/mesh.get_mesh_2d`):
+
+    torchrun --nproc_per_node N -m vpd_tpu_torch.tools.train_vipe \
+        --dataset 3d --save_dir <dir> [--tensor_parallel m]
+
+Every rank samples the global batches from the same seeds and keeps its
+rows; rank 0 writes the save dir, whole arrays as one device writes them.
 """
 
 import argparse
@@ -21,6 +29,7 @@ import functools
 import numpy as np
 
 from .. import resolve_device
+from ..core.mesh import distributed, get_mesh_2d
 from ..data.parallel_batcher import MultiprocessBatcher
 from ..data.vipe_sampler import (
     FAMILIES, FusedBatcher, PairwiseSampler, VIPESampler, load_3dpeople,
@@ -68,7 +77,8 @@ def get_args():
                              '(reference DataLoader num_workers)')
     parser.add_argument('--tensor_parallel', type=int, default=1,
                         help='model-axis size of a 2-D data x model mesh '
-                             '(column-shards the wide FC kernels)')
+                             '(column-shards the wide FC kernels over '
+                             'groups of this many torchrun ranks)')
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device (default cuda; cpu runs the '
                              'plain PyTorch path)')
@@ -105,10 +115,11 @@ def build_samplers(names, embed_bones, augment_camera, seed):
     return train_samplers, val_samplers, shapes, norms
 
 
-def worker_batcher(samplers, batch_size, seed, salt, worker_id):
+def worker_batcher(samplers, batch_size, seed, salt, worker_id, divisor=1):
     """Worker `worker_id`'s `FusedBatcher`: copies of the samplers (the
     pose data shared), sampler i seeded seed + salt + 7919 * (worker_id +
-    1) + i as vpd_tpu seeds its workers. Module-level, so that a
+    1) + i as vpd_tpu seeds its workers; its batch a multiple of
+    `divisor` (the data ranks). Module-level, so that a
     `functools.partial` of it pickles into spawned workers."""
     clones = []
     for si, smp in enumerate(samplers):
@@ -116,7 +127,7 @@ def worker_batcher(samplers, batch_size, seed, salt, worker_id):
         c.rng = np.random.default_rng(seed + salt + 7919 * (worker_id + 1)
                                       + si)
         clones.append(c)
-    return FusedBatcher(clones, batch_size)
+    return FusedBatcher(clones, batch_size, divisor=divisor)
 
 
 def main(dataset, save_dir, checkpoint_frequency, num_epochs, learning_rate,
@@ -124,11 +135,7 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, learning_rate,
          model_select_contrast, model_select_window, resume, no_camera_aug,
          seed, render_preview_frequency=100, num_workers=0,
          tensor_parallel=1, device='cuda'):
-    if tensor_parallel > 1:
-        raise NotImplementedError(
-            'tensor parallelism for the teacher is not ported yet '
-            '(ROADMAP A11)')
-    device = resolve_device(device)
+    resolve_device(device)  # no GPU: raise before loading data
     if dataset and 'all' in dataset:
         dataset = DATASETS
     elif dataset and '3d' in dataset:
@@ -136,19 +143,43 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, learning_rate,
     if not dataset:
         raise ValueError('no datasets selected')
 
+    with distributed(device) as mesh:
+        if mesh.world % tensor_parallel:
+            raise SystemExit(
+                '--tensor_parallel {} splits the teacher over groups of {} '
+                'ranks: launch a multiple of {} processes with torchrun '
+                '--nproc_per_node (this run has {})'.format(
+                    tensor_parallel, tensor_parallel, tensor_parallel,
+                    mesh.world))
+        if tensor_parallel > 1:
+            mesh = get_mesh_2d(tensor_parallel, device=mesh.device)
+        return _train(mesh, dataset, save_dir, checkpoint_frequency,
+                      num_epochs, learning_rate, batch_size, embedding_dim,
+                      encoder_arch, decoder_arch, embed_bones,
+                      model_select_contrast, model_select_window, resume,
+                      no_camera_aug, seed, render_preview_frequency,
+                      num_workers)
+
+
+def _train(mesh, dataset, save_dir, checkpoint_frequency, num_epochs,
+           learning_rate, batch_size, embedding_dim, encoder_arch,
+           decoder_arch, embed_bones, model_select_contrast,
+           model_select_window, resume, no_camera_aug, seed,
+           render_preview_frequency, num_workers):
     train_samplers, val_samplers, shapes, norms = build_samplers(
         dataset, embed_bones, not no_camera_aug, seed)
-    train_b = FusedBatcher(train_samplers, batch_size)
-    val_b = FusedBatcher(val_samplers, batch_size)
+    div = mesh.data_size
+    train_b = FusedBatcher(train_samplers, batch_size, divisor=div)
+    val_b = FusedBatcher(val_samplers, batch_size, divisor=div)
     owned = []
     if num_workers > 0:
         train_b = MultiprocessBatcher(
             functools.partial(worker_batcher, train_samplers, batch_size,
-                              seed, 0),
+                              seed, 0, divisor=div),
             num_workers, train_b.num_batches, template=train_b)
         val_b = MultiprocessBatcher(
             functools.partial(worker_batcher, val_samplers, batch_size,
-                              seed, 104729),
+                              seed, 104729, divisor=div),
             max(1, num_workers // 2), val_b.num_batches, template=val_b)
         owned = [train_b, val_b]
 
@@ -165,7 +196,7 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, learning_rate,
     trainer = None
     try:
         trainer = VIPETrainer(train_b, val_b, config, save_dir=save_dir,
-                              seed=seed, device=device)
+                              mesh=mesh, seed=seed)
         start_epoch = 1
         if resume:
             start_epoch = trainer.resume()
@@ -175,11 +206,12 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, learning_rate,
                  for n in dataset]
         for epoch in range(start_epoch, num_epochs + 1):
             train_m, val_m = trainer.train_one_epoch(epoch)
-            print('Epoch {} - train loss: {:0.5f} val loss: {:0.5f} '
-                  '({:0.2f} s)'.format(epoch, train_m['loss'],
-                                       val_m['loss'],
-                                       trainer.epoch_seconds[-1]),
-                  flush=True)
+            if trainer.primary:
+                print('Epoch {} - train loss: {:0.5f} val loss: {:0.5f} '
+                      '({:0.2f} s)'.format(epoch, train_m['loss'],
+                                           val_m['loss'],
+                                           trainer.epoch_seconds[-1]),
+                      flush=True)
             if render_preview_frequency and \
                     epoch % render_preview_frequency == 0:
                 trainer.render_previews(train_samplers, specs, epoch)

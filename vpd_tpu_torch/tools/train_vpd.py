@@ -11,8 +11,14 @@ Same flags as `python -m vpd_tpu.tools.train_vpd`, plus `--device`
 Crops are read from `<VPD_SPORTS_DIR>/<dataset>/crops` (PNGs, decoded by
 the native decoder where it builds, else cv2 or PIL) or from packed raw
 shards (`--crop_shards`, written by `tools/pack_crops`). `--hbm_cache`
-(or `--hbm_cache_sharded`, the same on one GPU) stages the shards in
-device memory once and trains on index batches gathered there.
+stages the shards in device memory once and trains on index batches
+gathered there; `--hbm_cache_sharded` splits the cache by rows over the
+GPUs (the same as `--hbm_cache` on one). On N GPUs, one process each:
+
+    torchrun --nproc_per_node N -m vpd_tpu_torch.tools.train_vpd fs ...
+
+The global batch is `--batch_size`; each rank decodes its rows of it
+(`core/mesh.py`), and rank 0 writes the save dir.
 `--num_workers N` decodes in N spawned worker processes (N // 2 for
 validation). `--pretrained --init_weights <torchvision .pth>` starts a
 ResNet backbone from ImageNet weights; `--encoder_arch effnet0`..`effnet7`
@@ -34,6 +40,7 @@ from .. import resolve_device
 from ..data.crops import (CropBatchSource, PrefetchedSource, scan_emb_dir,
                           train_val_split)
 from ..data.hbm_cache import CacheIndexSource, DeviceCropCache
+from ..core.mesh import distributed
 from ..data.parallel_batcher import MultiprocessBatcher
 from ..data.shards import ShardReader
 from ..datasets.eval_splits import get_test_prefixes
@@ -111,9 +118,9 @@ def get_args():
                         help='colour-jitter op order: one per batch '
                              '(default) or per image (QUIRKS.md)')
     parser.add_argument('--hbm_cache_sharded', action='store_true',
-                        help='row-shard the device cache over GPUs; on '
-                             'one GPU the same as --hbm_cache (the '
-                             'multi-GPU cache is ROADMAP A11)')
+                        help='row-shard the device cache over the GPUs '
+                             '(torchrun ranks) instead of replicating it; '
+                             'on one GPU the same as --hbm_cache')
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device (default cuda; cpu runs the '
                              'plain PyTorch path)')
@@ -135,7 +142,8 @@ def get_exclude_prefixes(dataset):
 
 
 def make_penn_sources(penn_dir, frame_dir, img_dim, batch_size, *,
-                      motion=False, min_pose_score=None, seed=0):
+                      motion=False, min_pose_score=None, seed=0,
+                      batch_part=(0, 1)):
     """Penn Action ablation sources (reference PennDataset.load_default,
     `vpd_dataset/single_frame.py:316-358`): scan, 80/20 split (the
     validation share rounded up, as sklearn's `train_test_split`; each
@@ -152,9 +160,11 @@ def make_penn_sources(penn_dir, frame_dir, img_dim, batch_size, *,
     val = sorted(samples[i] for i in order[:n_val])
     train = sorted(samples[i] for i in order[n_val:])
     return (PennBatchSource(train, frame_dir, img_dim, batch_size,
-                            target_len=TRAIN_LEN, seed=seed),
+                            target_len=TRAIN_LEN, seed=seed,
+                            batch_part=batch_part),
             PennBatchSource(val, frame_dir, img_dim, batch_size,
-                            target_len=VAL_LEN, seed=seed + 1),
+                            target_len=VAL_LEN, seed=seed + 1,
+                            batch_part=batch_part),
             emb_dim)
 
 
@@ -171,12 +181,17 @@ def worker_source(samples, img_dir, img_dim, batch_size, target_len, seed,
 def make_sources(train, val, crop_dir, img_dim, batch_size, seed, *,
                  flow_img=None, crop_shards=None, augment_val=False,
                  hbm_cache=False, hbm_cache_sharded=False, num_workers=0,
-                 device=None):
+                 device=None, mesh=None):
     """(train, val, owned): the batch sources of a run and what the caller
     closes, last first. With the cache: index sources over one
     `DeviceCropCache`; else crop sources (in worker processes with
-    `num_workers`) behind a prefetcher that stages batches on `device`."""
+    `num_workers`) behind a prefetcher that stages batches on `device`.
+    On a data `mesh` each source gives this rank's rows of the global
+    batches, and the cache is built on the mesh."""
     src_kwargs = {'flow_img_name': flow_img, 'shard_dir': crop_shards}
+    if mesh is not None:
+        device = mesh.device
+        src_kwargs['batch_part'] = mesh.batch_part
     if hbm_cache or hbm_cache_sharded:
         # stage the packed shards on the device once; batches become
         # index gathers there, so no decode workers and no prefetch
@@ -185,7 +200,7 @@ def make_sources(train, val, crop_dir, img_dim, batch_size, seed, *,
         if num_workers:
             raise ValueError('--hbm_cache needs no decode workers')
         cache = DeviceCropCache(ShardReader(crop_shards, crop_root=crop_dir),
-                                use_flow=flow_img is not None,
+                                use_flow=flow_img is not None, mesh=mesh,
                                 shard_rows=hbm_cache_sharded, device=device)
         return (CacheIndexSource(train, crop_dir, img_dim, batch_size,
                                  target_len=TRAIN_LEN, seed=seed,
@@ -237,12 +252,35 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
         assert not (crop_shards or hbm_cache or hbm_cache_sharded
                     or num_workers or augment_val), \
             'penn supports none of shards/hbm_cache/workers/augment_val'
-    device = resolve_device(device)
+    resolve_device(device)  # no GPU: raise before loading data
+    with distributed(device) as mesh:
+        trainer = _train(mesh, dataset, save_dir, checkpoint_frequency,
+                         num_epochs, batch_size, learning_rate, img_dim,
+                         flow_img, motion, encoder_arch, model_select_window,
+                         pretrained, no_test_video, min_pose_score, emb_dir,
+                         seed, num_workers, init_weights, crop_shards,
+                         augment_val, hbm_cache, hbm_cache_sharded, penn_dir,
+                         penn_frame_dir, resume, jitter_order)
+    if trainer.primary:
+        print('Done!')
+    return trainer
+
+
+def _train(mesh, dataset, save_dir, checkpoint_frequency, num_epochs,
+           batch_size, learning_rate, img_dim, flow_img, motion,
+           encoder_arch, model_select_window, pretrained, no_test_video,
+           min_pose_score, emb_dir, seed, num_workers, init_weights,
+           crop_shards, augment_val, hbm_cache, hbm_cache_sharded, penn_dir,
+           penn_frame_dir, resume, jitter_order):
+    if batch_size % mesh.data_size:
+        raise SystemExit('--batch_size {} must be divisible by the {} '
+                         'ranks'.format(batch_size, mesh.data_size))
+    device = mesh.device
     if dataset == 'penn':
         train_src, val_src, emb_dim = make_penn_sources(
             penn_dir, penn_frame_dir or paths.PENN_FRAME_DIR, img_dim,
             batch_size, motion=motion, min_pose_score=min_pose_score,
-            seed=seed)
+            seed=seed, batch_part=mesh.batch_part)
         train_src = PrefetchedSource(train_src, device=device)
         val_src = PrefetchedSource(val_src, device=device)
         owned = [train_src, val_src]
@@ -259,7 +297,7 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
             flow_img=flow_img, crop_shards=crop_shards,
             augment_val=augment_val, hbm_cache=hbm_cache,
             hbm_cache_sharded=hbm_cache_sharded, num_workers=num_workers,
-            device=device)
+            mesh=mesh)
 
     config = default_config(
         dataset, emb_dim, num_epochs=num_epochs, batch_size=batch_size,
@@ -271,7 +309,7 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
         augment_val=augment_val, jitter_order=jitter_order)
     try:
         trainer = VPDTrainer(train_src, val_src, config, save_dir=save_dir,
-                             seed=seed, device=device,
+                             mesh=mesh, seed=seed,
                              pretrained_weights=init_weights)
         start_epoch = 1
         if resume:
@@ -283,7 +321,6 @@ def main(dataset, save_dir, checkpoint_frequency, num_epochs, batch_size,
     finally:
         for src in reversed(owned):
             src.close()
-    print('Done!')
     return trainer
 
 

@@ -15,6 +15,15 @@ subsets of different sizes), step count, dropout stream, validation-best
 snapshot and early stop; a stopped member's weights, moments and
 statistics stay frozen while the others train.
 
+On a data mesh (`mesh`, `core.mesh.member_axis_placement`) the member
+axis is split over the ranks: the members are padded to a multiple of the
+rank count with copies of member 0, and each rank trains its block as
+one model. Members are independent, so the epochs need no collective,
+and each rank stops when its own members have stopped (a stopped member
+is frozen). At the end every rank gathers every member's state from the
+others (the one collective, which every rank reaches, one that holds
+only pad members too), so `member(m)` answers on each rank.
+
 BUCKETING CAVEAT: all members pad to one bucket derived from the POOL's
 max length (`self.bucket_max_len`), while a standalone `SeqModelTrainer`
 buckets to its own subset's max, and the unmasked attention-pooling quirk
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.mesh import all_gather_object, member_axis_placement
 from ..models.flax_weights import seq_head_to_flax
 from .classifier import (bucket_len, check_labels, make_model, to_pool,
                          train_members)
@@ -39,8 +49,8 @@ class FusedSweepTrainer:
     X_pool / y_pool are the shared training sequences ((T, D) arrays) and
     integer labels; member_rows (length M) holds each member's rows of
     the pool in its local order; X_val / y_val are shared by every member.
-    `mesh` (sharding the member axis over chips) is not ported (ROADMAP
-    A11) and must be None. `device` and `dtype` as in `SeqModelTrainer`.
+    `mesh` splits the member axis over its ranks (on the mesh's device).
+    `device` and `dtype` as in `SeqModelTrainer`.
 
     After construction, `member(m)` returns member m's (params,
     batch_stats) flax trees (its validation-best state when a validation
@@ -54,10 +64,11 @@ class FusedSweepTrainer:
                  early_term_val_num_epochs=200, learning_rate=0.001,
                  seed=0, bucket_floor=None, mesh=None, log=None,
                  device=None, dtype=torch.float32, **kwargs):
-        if mesh is not None:
-            from ..tasks.recognize import not_ported
-            raise not_ported('the device mesh', 'A11')
-        self.device = device = resolve_device(device)
+        real_m = len(member_rows)
+        mesh, member_rows, put_m, _ = member_axis_placement(mesh,
+                                                            member_rows)
+        self.device = device = resolve_device(
+            device if mesh is None else mesh.device)
         y_pool = np.asarray(y_pool, np.int64)
         num_classes = check_labels(y_pool)
         for rows in member_rows:
@@ -71,10 +82,11 @@ class FusedSweepTrainer:
                     'requires every member to see every class'.format(
                         got, num_classes))
         self.num_classes = num_classes
-        self.num_members = len(member_rows)
+        self.num_members = real_m
+        local_rows = put_m(member_rows)
         self.model = make_model(
             arch_type, X_pool[0].shape[-1], num_classes, hidden_dim,
-            num_members=self.num_members, seed=seed, **kwargs).to(
+            num_members=len(local_rows), seed=seed, **kwargs).to(
                 device, dtype)
         self.bucket_max_len = bucket_len(max(
             max(len(x) for x in X_pool),
@@ -87,16 +99,28 @@ class FusedSweepTrainer:
                                 dtype)
             val = (xv, lv, np.asarray(y_val, np.int64))
         if log is not None:
-            log('fused sweep: {} members on {}'.format(self.num_members,
-                                                      device))
-        self.best_epoch, self.stopped = train_members(
-            self.model, device, pool, member_rows, batch_size=batch_size,
+            log('fused sweep: {} members on {}{}'.format(
+                real_m, device, '' if mesh is None else
+                ', {} a rank over {} ranks'.format(len(local_rows),
+                                                   mesh.world)))
+        best_epoch, stopped = train_members(
+            self.model, device, pool, local_rows, batch_size=batch_size,
             num_epochs=num_epochs, min_epochs=min_epochs, wr_count=wr_count,
             early_term_acc=early_term_acc, val=val, val_freq=val_freq,
             early_term_val_num_epochs=early_term_val_num_epochs,
             learning_rate=learning_rate, seed=seed)
+        trees = [seq_head_to_flax(self.model, mi)
+                 for mi in range(len(local_rows))]
+        if mesh is not None:  # every rank's members, in member order
+            parts = all_gather_object(
+                (trees, best_epoch, stopped), mesh.data_group)
+            trees = [t for p in parts for t in p[0]]
+            best_epoch = np.concatenate([p[1] for p in parts])
+            stopped = np.concatenate([p[2] for p in parts])
+        self._trees = trees[:real_m]
+        self.best_epoch, self.stopped = best_epoch[:real_m], stopped[:real_m]
 
     def member(self, mi):
         """(params, batch_stats) flax trees of member `mi`."""
-        tree = seq_head_to_flax(self.model, mi)
+        tree = self._trees[mi]
         return tree['params'], tree['batch_stats']

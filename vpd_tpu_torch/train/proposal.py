@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..core.mesh import all_gather_object, member_axis_placement
 from ..models.fc import FlaxDropout, set_dropout_draw
 from ..models.flax_weights import proposal_to_flax
 from ..models.gru import (BiRNN, FlaxBatchNorm, MemberDense, graphed_rnn,
@@ -262,20 +263,33 @@ def _split_kwargs(kwargs):
 class FusedEnsembleTrainer:
     """Train every KFold ensemble member as one batched model. `members`
     is a list of (X_train, y_train, X_val, y_val, seed) fold specs; each
-    member matches a `ProposalTrainer` of its spec. `mesh` (sharding the
-    members over chips) is not ported (ROADMAP A11)."""
+    member matches a `ProposalTrainer` of its spec. `mesh` splits the
+    members over its ranks (`core.mesh.member_axis_placement`: padded
+    with copies of member 0, a block a rank, no collective while they
+    train); at the end every rank gathers every member's state, and
+    `model` holds all the real members on each rank."""
 
     def __init__(self, arch_type, members, hidden_dim, mesh=None,
                  device=None, dtype=torch.float32, **kwargs):
-        if mesh is not None:
-            from ..tasks.recognize import not_ported
-            raise not_ported('the device mesh', 'A11')
-        self.device = resolve_device(device)
+        real_m = len(members)
+        mesh, members, put_m, _ = member_axis_placement(mesh, members)
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device)
         train, model_kw = _split_kwargs(dict(kwargs))
+        local = put_m(members)
         self.model = train_proposal_members(
-            _build(arch_type, members, hidden_dim, self.device, dtype,
-                   **model_kw), self.device, members, **train)
-        self.num_members = len(members)
+            _build(arch_type, local, hidden_dim, self.device, dtype,
+                   **model_kw), self.device, local, **train)
+        if mesh is not None:
+            states = all_gather_object(
+                {k: v.cpu() for k, v in self.model.state_dict().items()},
+                mesh.data_group)
+            self.model = _build(arch_type, members[:real_m], hidden_dim,
+                                self.device, dtype, **model_kw)
+            self.model.load_state_dict({
+                k: torch.cat([st[k] for st in states])[:real_m]
+                for k in states[0]})
+        self.num_members = real_m
 
     def member(self, mi):
         tree = proposal_to_flax(self.model, mi)
@@ -387,9 +401,6 @@ class EnsembleProposal:
             self.model = FusedEnsembleTrainer(
                 arch_type, specs, hidden_dim, mesh=mesh, **kwargs).model
             return
-        if mesh is not None:
-            from ..tasks.recognize import not_ported
-            raise not_ported('the device mesh', 'A11')
         self.models = [ProposalTrainer(
             arch_type, Xt, yt, hidden_dim, X_val=Xv, y_val=yv, seed=s,
             **kwargs) for Xt, yt, Xv, yv, s in specs]

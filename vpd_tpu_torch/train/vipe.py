@@ -22,14 +22,22 @@ seeded `fold_in(seed, step)` (`train/vpd.fold_in`); the trainer passes
 `seed + 1`, as vpd_tpu keys its dropout `fold_in(key(seed + 1), step)`.
 The teacher computes in float32 (vpd_tpu's default dtype) with TF32 left
 off.
+
+On a data mesh (a state made with `mesh=`) each rank steps on its rows
+of the global batch: the loss is divided by the global row count, the
+dropout masks are drawn for the global batch and sliced
+(`train/vpd.global_rows_draw`), the BatchNorm statistics are global, the
+gradients are summed over the data group before AdamW, and the epoch's
+metrics are summed over it.
 """
 
 import torch
 from torch import nn
 
+from ..core.mesh import all_reduce_grads, all_reduce_sum
 from ..core.metrics import fetch_metrics
 from ..models.fc import set_dropout_draw
-from .vpd import fold_in, optimizer_step
+from .vpd import fold_in, global_rows_draw, optimizer_step
 
 HINGE_MARGIN = 1.0
 
@@ -64,9 +72,10 @@ def _safe_norm(x):
     return torch.sqrt(torch.sum(torch.square(x), dim=1) + 1e-12)
 
 
-def _losses(model, batch, kp_mask, weight_3d):
+def _losses(model, batch, kp_mask, weight_3d, ranks=1):
     """(loss to backprop, metrics on the device) of `model` in its current
-    mode on one batch of tensors."""
+    mode on one batch of tensors, rows of a global batch `ranks` times as
+    large (whose row count divides the loss)."""
     e1, e2, e_neg, pred1, pred2 = model(batch)
     n = e1.shape[0]
     ds_id = batch['dataset_id'].to(torch.long)
@@ -94,7 +103,7 @@ def _losses(model, batch, kp_mask, weight_3d):
         'ds_loss_sum': zeros.index_add(0, ds_id, rows),
         'ds_count': zeros.index_add(0, ds_id, torch.ones_like(rows)),
     }
-    return loss_sum / n, metrics
+    return loss_sum / (n * ranks), metrics
 
 
 class _StepConstants:
@@ -129,16 +138,17 @@ def make_train_step(kp_mask, weight_3d=1.0):
         model = state.model.train()
         device = batch['pose1'].device
         gen = consts.generator(device, fold_in(seed, state.step))
-        set_dropout_draw(model, lambda shape, keep, dev: torch.rand(
-            shape, generator=gen, device=dev) < keep)
+        set_dropout_draw(model, global_rows_draw(gen, state.part))
         try:
             loss, metrics = _losses(
                 model, batch,
-                consts.kp_mask(device, batch['kp_features'].dtype), weight_3d)
+                consts.kp_mask(device, batch['kp_features'].dtype), weight_3d,
+                state.part[1])
         finally:
             set_dropout_draw(model, None)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(model.parameters(), state.data_group)
         optimizer_step(state)
         return metrics
 
@@ -172,10 +182,14 @@ def run_epoch(batcher, state, step_fn, num_batches, seed=None, train=True):
                             else step_fn(state, batch))
     step_metrics = fetch_metrics(step_metrics)
 
-    total = {k: sum(m[k] for m in step_metrics)
-             for k in ('loss_sum', 'contra_sum', 'n')}
-    ds_loss = sum(m['ds_loss_sum'] for m in step_metrics)
-    ds_count = sum(m['ds_count'] for m in step_metrics)
+    mesh = state.mesh  # a data mesh: the global batch's sums
+    total = dict(zip(('loss_sum', 'contra_sum', 'n'), all_reduce_sum(
+        [sum(m[k] for m in step_metrics)
+         for k in ('loss_sum', 'contra_sum', 'n')], mesh)))
+    ds_loss = all_reduce_sum(sum(m['ds_loss_sum'] for m in step_metrics),
+                             mesh)
+    ds_count = all_reduce_sum(sum(m['ds_count'] for m in step_metrics),
+                              mesh)
     n = max(total['n'], 1)
     return {
         'loss': total['loss_sum'] / n,

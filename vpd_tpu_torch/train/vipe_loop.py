@@ -11,8 +11,15 @@ A save dir holds `{name}.encoder.ckpt`, `{name}.decoder-3d.ckpt` and
 flax-msgpack format, so a teacher written by either package serves, and
 a run resumes, in the other. A resume restores the step count from the
 optimizer's, so a resumed run draws the dropout masks an uninterrupted
-one would (vpd_tpu restarts its step at 0). Tensor parallelism is not
-ported (ROADMAP A11): the teacher trains on one device.
+one would (vpd_tpu restarts its step at 0).
+
+On a data mesh (`mesh`, one process per GPU) every rank samples the
+global batches from the same seeded batchers and steps on its rows
+(`train/vipe.py`); the epoch metrics are global, so every rank selects
+the same checkpoints, and only the primary rank writes. On a (data,
+model) grid (`core.mesh.get_mesh_2d`) the wide layers are split by
+columns over the model group as well (`models/tensor_parallel.py`), and
+the primary rank writes full arrays, as a one-device run does.
 """
 
 import os
@@ -24,13 +31,17 @@ import torch
 from .. import resolve_device
 from ..core import checkpoint as ckpt
 from ..core.io import load_json, store_json
+from ..core.mesh import LocalRows, get_mesh, is_primary, replicate
 from ..data.crops import PrefetchedSource
 from ..geometry.coco import pose_input_dim
 from ..models.fc import FCPoseDecoder, FCResNet
 from ..models.flax_weights import (load_vipe_from_flax, vipe_params_from_flax,
                                    vipe_params_to_flax, vipe_to_flax)
+from ..models.tensor_parallel import (full_tensors, local_tensors,
+                                      shard_vipe_model)
 from .vipe import VIPEModel, make_eval_step, make_train_step, run_epoch
-from .vpd import create_state, load_optimizer_from_flax, optimizer_to_flax
+from .vpd import (create_state, load_moments, load_optimizer_from_flax,
+                  moments_to_flax, optimizer_moments, optimizer_to_flax)
 
 ENCODER_DROPOUT = 0.2
 DECODER_DROPOUT = 0.0
@@ -79,13 +90,18 @@ class VIPETrainer:
     """Trains the teacher from fused batchers (`data/vipe_sampler.
     FusedBatcher` or a `MultiprocessBatcher` templated on one) on `device`
     (CUDA by default), float32. Batches are staged on the device by a
-    prefetch thread; `close()` stops it."""
+    prefetch thread; `close()` stops it. `mesh`: the data mesh
+    (`core.mesh.get_mesh()` by default), on whose device the trainer
+    runs; the batchers give global batches, of which each rank keeps its
+    rows."""
 
     def __init__(self, train_batcher, val_batcher, config, save_dir=None,
-                 seed=0, device=None):
+                 mesh=None, seed=0, device=None):
         self.config = dict(config)
         self.save_dir = save_dir
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else get_mesh(device)
+        self.device = resolve_device(self.mesh.device)
+        self.primary = is_primary()
 
         # the initial weights follow `seed` (vpd_tpu inits from
         # jax.random.key(seed)), without touching the global generator
@@ -93,10 +109,18 @@ class VIPETrainer:
             torch.manual_seed(seed)
             model = build_model(self.config, train_batcher.kp_dims)
         model.to(self.device)
+        replicate(model, self.mesh)  # every rank starts from rank 0's
+        # a (data, model) grid: the wide layers split by columns; a
+        # whole-width copy (on the host) is the checkpoints' layout
+        self.tp_dims = self._whole = None
+        if self.mesh.model_size > 1:
+            self._whole = build_model(self.config, train_batcher.kp_dims)
+            self.tp_dims = shard_vipe_model(model, self.mesh)
         # vpd_tpu draws one training batch to build its state; draw and drop
         # it, so that the batches that follow are vpd_tpu's
         train_batcher.next_batch()
-        self.state = create_state(model, self.config['learning_rate'])
+        self.state = create_state(model, self.config['learning_rate'],
+                                  mesh=self.mesh)
         kp_mask = train_batcher.kp_mask()
         self.train_step = make_train_step(kp_mask, weight_3d=LIFT_3D_WEIGHT)
         self.eval_step = make_eval_step(kp_mask, weight_3d=LIFT_3D_WEIGHT)
@@ -104,9 +128,11 @@ class VIPETrainer:
 
         # sample ahead on a thread that also stages each batch on the
         # device, so the host sampler overlaps the step in flight
-        self.train_batcher = PrefetchedSource(train_batcher,
-                                              device=self.device)
-        self.val_batcher = (PrefetchedSource(val_batcher, device=self.device)
+        part = self.state.part
+        self.train_batcher = PrefetchedSource(
+            LocalRows(train_batcher, part), device=self.device)
+        self.val_batcher = (PrefetchedSource(LocalRows(val_batcher, part),
+                                             device=self.device)
                             if val_batcher is not None else None)
 
         self.losses = []
@@ -121,38 +147,72 @@ class VIPETrainer:
     # -- persistence ------------------------------------------------------
 
     def save_config(self):
+        if not self.primary:
+            return
         os.makedirs(self.save_dir, exist_ok=True)
         store_json(os.path.join(self.save_dir, 'config.json'), self.config)
 
     def _components(self):
-        tree = vipe_to_flax(self.model)
+        if self.tp_dims is None:
+            model = self.model
+            opt = optimizer_to_flax(self.state, vipe_params_to_flax)
+        else:  # whole arrays from the model group (a collective)
+            model = self._whole
+            model.load_state_dict({k: v.cpu() for k, v in full_tensors(
+                self.model.state_dict(), self.tp_dims, self.mesh).items()})
+            count, moments = optimizer_moments(self.state)
+            opt = moments_to_flax(model, count, {
+                k: {n: t.cpu() for n, t in full_tensors(
+                    v, self.tp_dims, self.mesh).items()}
+                for k, v in moments.items()}, vipe_params_to_flax)
+        tree = vipe_to_flax(model)
         comps = {
             'encoder': {'params': tree['params']['encoder'],
                         'batch_stats': tree['batch_stats'].get('encoder',
                                                                {})},
-            'optimizer': optimizer_to_flax(self.state, vipe_params_to_flax),
+            'optimizer': opt,
         }
-        if self.model.decoder is not None:
+        if model.decoder is not None:
             comps['decoder-3d'] = {
                 'params': tree['params']['decoder'],
                 'batch_stats': tree['batch_stats'].get('decoder', {})}
         return comps
 
     def save_model(self, name):
-        ckpt.save_bundle(self.save_dir, name, self._components())
+        """Write a checkpoint (the primary rank alone; on a model grid
+        every rank takes part in gathering the whole arrays)."""
+        if self.primary or self.tp_dims is not None:
+            comps = self._components()
+            if self.primary:
+                ckpt.save_bundle(self.save_dir, name, comps)
 
     def load_model(self, name):
         """Load a checkpoint written by either package. A dir without an
         optimizer component (a serving-only import) resumes with fresh
-        AdamW moments, as vpd_tpu does."""
-        load_vipe_components(self.model, self.save_dir, name)
-        if os.path.exists(ckpt.component_path(self.save_dir, name,
-                                              'optimizer')):
-            load_optimizer_from_flax(
-                self.state, ckpt.load_component(self.save_dir, name,
-                                                'optimizer'),
-                vipe_params_from_flax)
+        AdamW moments, as vpd_tpu does. On a model grid every rank reads
+        the whole arrays and keeps its blocks."""
+        has_opt = os.path.exists(ckpt.component_path(self.save_dir, name,
+                                                     'optimizer'))
+        tree = (ckpt.load_component(self.save_dir, name, 'optimizer')
+                if has_opt else None)
+        if self.tp_dims is None:
+            load_vipe_components(self.model, self.save_dir, name)
+            if has_opt:
+                load_optimizer_from_flax(self.state, tree,
+                                         vipe_params_from_flax)
         else:
+            load_vipe_components(self._whole, self.save_dir, name)
+            local = local_tensors(self._whole.state_dict(), self.tp_dims,
+                                  self.mesh)
+            with torch.no_grad():
+                for k, t in self.model.state_dict().items():
+                    t.copy_(local[k])
+            if has_opt:
+                load_moments(self.state, int(tree['0']['count']), *(
+                    local_tensors(vipe_params_from_flax(
+                        self._whole, tree['0'][k]), self.tp_dims,
+                        self.mesh) for k in ('mu', 'nu')))
+        if not has_opt:
             print('WARNING: {} has no optimizer checkpoint; resuming '
                   'with fresh optimizer state'.format(name))
 
@@ -187,7 +247,7 @@ class VIPETrainer:
                              + per_ds(train_m),
             'dataset_val': [('contrast', val_m['contra'])] + per_ds(val_m),
         })
-        if self.save_dir:
+        if self.save_dir and self.primary:
             store_json(os.path.join(self.save_dir, 'loss.json'), self.losses)
 
         is_best = self.selector.update(val_m[select_key])
@@ -219,19 +279,28 @@ class VIPETrainer:
 
         Parity with `train_vipe_model.py:63-100,396-411`: for each 3D
         family, decode predicted features back to joint positions and
-        render front/side views alongside ground truth.
+        render front/side views alongside ground truth. Every rank
+        calls it; the primary rank renders (on a model grid, with the
+        whole-width copy its ranks gather).
         """
         from ..geometry.render import render_3d_skeleton_views, \
             save_video_preview
 
-        model = self.model.eval()
+        model, device = self.model, self.device
+        if self.tp_dims is not None:
+            model, device = self._whole, torch.device('cpu')
+            model.load_state_dict({k: v.cpu() for k, v in full_tensors(
+                self.model.state_dict(), self.tp_dims, self.mesh).items()})
+        if not self.primary:
+            return
+        model = model.eval()
 
         def predict(pose, ds_id):
             with torch.no_grad():
                 emb = model.embed(torch.as_tensor(
-                    pose, dtype=torch.float32, device=self.device))
+                    pose, dtype=torch.float32, device=device))
                 return model.decode(emb, torch.tensor(
-                    [ds_id], device=self.device)).cpu().numpy()
+                    [ds_id], device=device)).cpu().numpy()
 
         def frames():
             for ds_id, (sampler, spec) in enumerate(zip(samplers, specs)):

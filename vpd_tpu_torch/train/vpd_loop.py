@@ -14,6 +14,13 @@ train through the cached steps, which gather the pixels on the device.
 `pretrained` ResNet students start from a torchvision ImageNet state_dict
 (`models/torch_compat.py`); EfficientNet students (`effnet0`..`effnet7`,
 `models/efficientnet.py`) always start from random init, as vpd_tpu's do.
+
+On a data mesh of several ranks (`core/mesh.py`, one process per GPU
+under torchrun) every rank runs the trainer on its sources' rows of the
+global batches: the step sums gradients and BatchNorm statistics over
+the data group (`train/vpd.py`), the epoch losses are summed over it, so
+every rank selects the same checkpoints, and only the primary rank writes
+config.json, loss.json and the checkpoints. `resume` reads on every rank.
 """
 
 import os
@@ -25,6 +32,7 @@ import torch
 from .. import resolve_device
 from ..core import checkpoint as ckpt
 from ..core.io import load_json, store_json
+from ..core.mesh import all_reduce_sum, get_mesh, is_primary, replicate
 from ..core.metrics import fetch_metrics
 from ..data.augment import RGB_MEAN_STD
 from ..models import build_effnet, build_encoder
@@ -97,21 +105,30 @@ class VPDTrainer:
     CacheIndexSource`) selects the cached steps; the val source must
     share that cache, and `augment_val` is refused with it, as in
     vpd_tpu. `pretrained_weights` (a path or a state_dict) initialises a
-    `pretrained` student's backbone."""
+    `pretrained` student's backbone. `mesh` is the data mesh
+    (`core.mesh.get_mesh()` by default: one rank without a process
+    group); the sources give this rank's rows of each global batch, and
+    the trainer runs on the mesh's device."""
 
     def __init__(self, train_source, val_source, config, save_dir=None,
-                 seed=0, dtype=None, device=None, pretrained_weights=None):
+                 mesh=None, seed=0, dtype=None, device=None,
+                 pretrained_weights=None):
         self.train_source = train_source
         self.val_source = val_source
         self.config = dict(config)
         self.save_dir = save_dir
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else get_mesh(device)
+        self.device = resolve_device(self.mesh.device)
+        self.primary = is_primary()
         cache = getattr(train_source, 'device_cache', None)
         self.cache = cache.arrays if cache is not None else None
         if cache is not None:
             if not _same_device(cache.device, self.device):
                 raise ValueError('the DeviceCropCache is on {}, the trainer '
                                  'on {}'.format(cache.device, self.device))
+            if cache.row_sharded and cache.mesh is not self.mesh:
+                raise ValueError('a row-sharded DeviceCropCache must be '
+                                 'built on the trainer\'s mesh')
             if self.config.get('augment_val'):
                 raise ValueError('augment_val with the device crop cache is '
                                  'not implemented')
@@ -131,10 +148,13 @@ class VPDTrainer:
         model.to(self.device)
         if self.device.type == 'cuda':
             model.to(memory_format=torch.channels_last)
-        self.state = create_state(model, config['learning_rate'])
+        self.state = create_state(model, config['learning_rate'],
+                                  mesh=self.mesh)
         if self.config.get('pretrained'):
             self._init_pretrained(pretrained_weights,
                                   5 if config['use_flow'] else 3)
+        # every rank starts from rank 0's weights
+        replicate(model, self.mesh)
 
         mean, std = config['rgb_mean_std']
         # augmentation inputs follow the SOURCE's configuration: the
@@ -142,12 +162,14 @@ class VPDTrainer:
         # happens to hold masks
         use_mask = getattr(train_source, 'use_mask', True)
         jitter_order = self.config.get('jitter_order', 'batch')
+        cache_kw = ({} if self.cache is None
+                    else {'row_offset': cache.row_offset})
         make_train = (make_cached_train_step if self.cache is not None
                       else make_train_step)
         self.train_step = make_train(
             mean, std, img_dim=config['img_dim'],
             use_flow=config['use_flow'], use_mask=use_mask,
-            aug_dtype=model_dtype, jitter_order=jitter_order)
+            aug_dtype=model_dtype, jitter_order=jitter_order, **cache_kw)
         if self.config.get('augment_val'):
             self.eval_step = None
             self.aug_eval_step = make_aug_eval_step(
@@ -158,7 +180,8 @@ class VPDTrainer:
             make_eval = (make_cached_eval_step if self.cache is not None
                          else make_eval_step)
             self.eval_step = make_eval(mean, std,
-                                       use_flow=config['use_flow'])
+                                       use_flow=config['use_flow'],
+                                       **cache_kw)
             self.aug_eval_step = None
         self.seed = seed + 1
         self.val_seed = seed + 2
@@ -204,10 +227,15 @@ class VPDTrainer:
                 kept))
 
     def save_config(self):
+        if not self.primary:
+            return
         os.makedirs(self.save_dir, exist_ok=True)
         store_json(os.path.join(self.save_dir, 'config.json'), self.config)
 
     def save_model(self, name, with_optimizer=False):
+        """Write a checkpoint (the primary rank alone)."""
+        if not self.primary:
+            return
         comps = student_components(self.model)
         if with_optimizer:
             # epoch checkpoints (the --resume source) carry the AdamW
@@ -234,8 +262,9 @@ class VPDTrainer:
                 m = self.eval_step(self.state, batch)
             metrics.append(m)
         metrics = fetch_metrics(metrics)
-        total = sum(m['emb_loss_sum'] for m in metrics)
-        n = sum(m['n'] for m in metrics)
+        total, n = all_reduce_sum(
+            [sum(m['emb_loss_sum'] for m in metrics),
+             sum(m['n'] for m in metrics)], self.state.mesh)
         return total / max(n, 1)
 
     def train_one_epoch(self, epoch):
@@ -249,7 +278,7 @@ class VPDTrainer:
             'epoch': epoch, 'train': train_loss, 'val': val_loss,
             'dataset_train': [(self.config.get('dataset', ''), train_loss)],
             'dataset_val': [(self.config.get('dataset', ''), val_loss)]})
-        if self.save_dir:
+        if self.save_dir and self.primary:
             store_json(os.path.join(self.save_dir, 'loss.json'), self.losses)
 
         is_best = self.selector.update(val_loss)
@@ -266,9 +295,10 @@ class VPDTrainer:
         epoch = 0
         for epoch in range(start_epoch, self.config['num_epochs'] + 1):
             train_loss, val_loss = self.train_one_epoch(epoch)
-            log('Epoch {} - train loss: {:0.4f} val loss: {:0.4f} '
-                '({:0.2f} s)'.format(epoch, train_loss, val_loss,
-                                     self.epoch_seconds[-1]))
+            if self.primary:
+                log('Epoch {} - train loss: {:0.4f} val loss: {:0.4f} '
+                    '({:0.2f} s)'.format(epoch, train_loss, val_loss,
+                                         self.epoch_seconds[-1]))
         if self.save_dir and epoch:
             self.save_model('epoch{:04d}'.format(epoch),
                             with_optimizer=True)
