@@ -58,8 +58,8 @@ line each; any failure raises and exits non-zero:
              step, and one step of each path on the same rows with cuDNN
              deterministic (loss rel 1e-6, parameters max rel 1e-5); the
              CLI with --hbm_cache (1 epoch, --resume to 2) beside the
-             streamed CLI's epochs, and one epoch (half its virtual
-             epoch) with --num_workers 2;
+             streamed CLI's epochs, and one epoch (a quarter of its
+             virtual epoch) with --num_workers 2;
              `best_epoch` extracted through `apply_vpd` (B1 launches)
              against f32 weights (ROADMAP C2: min row cosine, mean
              pairwise cosines); 600 PNG crops decoded by the native
@@ -70,8 +70,8 @@ line each; any failure raises and exits non-zero:
              tools/paths' layout (`write_mocap_corpus`), `python -m
              vpd_tpu_torch.tools.train_vipe --dataset 3d` at vpd_tpu's
              defaults (FCResNet 2 x 1024, 32-d, batch 100; each epoch cut
-             to half of every family's) for 1 epoch
-             and `--resume` to 2 in subprocesses with VPD_VIPE_DATA_DIR
+             to a quarter of every family's) for 1 epoch
+             and `--resume` to 2 in a subprocess with VPD_VIPE_DATA_DIR
              set, its loss.json, best_epoch and checkpoints checked; the
              step alone at B = 100 and 4096 on a ring of batches on the
              card (ms, rows/s, peak memory, TFLOP/s beside the float32
@@ -85,7 +85,7 @@ line each; any failure raises and exits non-zero:
              products, its train steps in CUDA graphs), at full width
              (hidden 128, depth-2 BiGRU, the recognize phase's (2, 32)
              fs rows, batch 50; proposals at batch 100 on 250-frame
-             windows), depth cut to 12 epochs (3 for lstm and cnn; the
+             windows), depth cut to 8 epochs (3 for lstm and cnn; the
              CLI's default is 500) and the detect CLI's to 2 (200): the
              recognize CLI with gru + attention fused at -ne 4 16 64 x 10
              trials and at -ne -1 (accuracy held at >= 0.9), `-w` on its
@@ -202,8 +202,35 @@ line each; any failure raises and exits non-zero:
              process (cos 1 - 1e-4, byte equality; B1's launches summed
              over the ranks as the `data_parallel_extraction` path);
              (c) what one card cannot show, listed
+  bench      the measurement tools (`vpd_tpu_torch/tools/bench_*`), each
+             tool's `main` on its command line, the ensemble's in a
+             process of its own and the others one after the other in
+             one process, at full width (ResNet-34, 32-d, 128x128; the
+             heads at the tools' widths): bench_preprocess
+             at its defaults (B = 1024 and 4096, 3 rounds; B1's equality
+             with the plain path at atol 0.02, its rows and verdict);
+             bench_extract_e2e --flow at batch 1,024 on 2,048 crops (of
+             its default 4,096) from PNGs and from shards of the same
+             corpus (decode, end-to-end and card-only crops/s, busy
+             fraction in (0, 1.05]); bench_train_e2e (B = 512, 8 batches
+             an epoch) for 2 epochs (of 3) from PNGs and with --hbm_cache;
+             bench_ensemble_train --rounds 1 --epochs 1 (of 3 and 20);
+             bench_pipeline_e2e --shards --num_epochs 1 --loc_epochs 2
+             --samples_per_epoch 1000 on 3 + 1 videos (of 3 epochs, 200,
+             5,000 and 6 + 2; corpus, pack_crops, train_vpd, apply_vpd,
+             recognize, detect, each its own process). Each must end
+             without an error, with vpd_tpu's keys (under the port's
+             names) in its last JSON line, every number finite; B1's
+             launches counted from 0 around bench_preprocess and
+             bench_extract_e2e (paths `bench_preprocess` and
+             `bench_extract`). Then 4 embeds of
+             the slice phase's flow student inside `core/profiling.
+             trace`: the kernel events, B1's among them, and the share of
+             the traced window the card was busy
 
-The last three lines are the card line as nvidia-smi prints it, the
+Each phase's line carries `script_seconds`, the script's time so far. A
+train CLI and its `--resume` run share one process. The last three lines
+are the card line as nvidia-smi prints it, the
 kernels summary and `{"ok": true, "device": {...}}`. Scratch files go to
 `.smoke/` in the checkout and are removed at the end.
 """
@@ -226,6 +253,7 @@ import numpy as np
 import torch
 
 from vpd_tpu_torch.core import checkpoint as tckpt
+from vpd_tpu_torch.core import profiling
 from vpd_tpu_torch.core.io import (store_embs_pickle, store_gz_json,
                                    store_pickle)
 from vpd_tpu_torch.core.metrics import fetch_metrics
@@ -323,7 +351,7 @@ TEACHER_CPU_ATOL = 1e-4    # float32 on the card (TF32 off) against the CPU
 # depth-2 BiGRU, 32-d rows with flips, batch 50 / 100, 250-frame windows),
 # depth in epochs cut from the CLIs' 500 (recognize) and 200 (detect)
 HEADS_H, HEADS_B, HEADS_T = 128, 50, 128
-HEADS_EPOCHS, HEADS_VAL_FREQ = 12, 4
+HEADS_EPOCHS, HEADS_VAL_FREQ = 8, 4
 HEADS_SHORT_EPOCHS = 3     # the lstm and cnn runs
 HEADS_FUSED_M = 10         # the few-shot sweep's trials
 HEADS_ROWS = 768           # a 64-shot trial: 6 classes x 64 x 2 flips
@@ -359,7 +387,7 @@ EFFNET_CLI_EPOCHS = 1      # then --resume to 2
 # phase's worker run take (the script's time limit; the effnet CLI keeps
 # whole epochs: its extraction check needs a student whose crops' rows
 # differ)
-CLI_SHARE = 0.5
+CLI_SHARE = 0.25
 EFFNET_LOSS_RTOL = 1e-4    # tests/test_torch_cuda.py's train-step bars
 EFFNET_STATS_RTOL, EFFNET_STATS_ATOL = 1e-4, 1e-6   # BN running statistics
 # each gradient: |g_cuda - g_cpu| <= rtol |g_cpu| + floor |whole gradient|
@@ -386,6 +414,42 @@ MESH_GRAD_RTOL, MESH_GRAD_FLOOR = 1e-3, 1e-6   # the effnet phase's bar
 # of convolution algorithms by 0.025, DDP's mean by 499 (PERF.md, mesh)
 MESH_F32_SHARE_BAR = 20.
 MESH_COS_BAR = 1 - 1e-4     # extraction against one process
+# the measurement tools (`vpd_tpu_torch/tools/bench_*`), each in its own
+# process at its defaults but for BENCH_DEPTH; the keys of each one's last JSON
+# line: vpd_tpu's under the port's names, and the device it ran on
+BENCH_KEYS = {
+    'bench_extract_e2e': {
+        'metric', 'value', 'unit', 'decode_only_rate', 'chip_only_rate',
+        'chip_busy_fraction', 'batch_size', 'num_crops', 'flow',
+        'native_loader', 'host_cores', 'shards', 'upload_codec',
+        'shard_codec', 'device'},
+    'bench_train_e2e': {
+        'metric', 'value', 'unit', 'mode', 'batch_size', 'num_crops',
+        'arch', 'host_cores', 'device'},
+    'bench_preprocess': {'verdict', 'device'},
+    'bench_ensemble_train': {
+        'stage', 'fused_median_s', 'sequential_median_s', 'fused_times',
+        'sequential_times', 'speedup', 'device'},
+    'bench_pipeline_e2e': {
+        'metric', 'value', 'unit', 'stages', 'n_crops',
+        'train_crops_per_sec', 'extract_crops_per_sec', 'mode',
+        'detect_ap_max', 'device'},
+}
+BENCH_PREPROCESS_ROW_KEYS = {'batch', 'stage', 'plain_crops_per_s',
+                             'kernel_crops_per_s', 'kernel_variant',
+                             'kernel_vs_plain', 'device'}
+BENCH_DEPTH = {  # the depth cuts of the tools' defaults (the time limit)
+    'bench_preprocess': [],
+    'bench_extract_e2e': ['--num_crops', '2048'],
+    'bench_train_e2e': ['--epochs', '2'],
+    'bench_ensemble_train': ['--rounds', '1', '--epochs', '1'],
+    'bench_pipeline_e2e': ['--shards', '--num_epochs', '1',
+                           '--loc_epochs', '2', '--samples_per_epoch',
+                           '1000', '--num_train_videos', '3',
+                           '--num_test_videos', '1'],
+}
+BENCH_BUSY_MAX = 1.05       # (b) over (c) in bench_extract_e2e
+TRACE_LAUNCHES = 4          # embeds of the slice's flow student traced
 
 
 # the teacher's synthetic mocap corpus, in tools/paths' layout; the people
@@ -401,7 +465,16 @@ MOCAP_ACTIONS = ('walk', 'jump')  # nba2k keys by person alone
 MOCAP_FRAMES, MOCAP_CAMERAS = 60, 4
 
 
+_START = time.perf_counter()
+# the environment the script was started in: the bench tools run in it
+_ENV0 = dict(os.environ)
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the script's seconds so
+    far (`script_seconds`)."""
+    if 'phase' in obj:
+        obj = dict(obj, script_seconds=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -1638,6 +1711,14 @@ def _train_cli(args, env, tool='train_vpd', share=1.):
     return _run_tools([(tool, args)], env, share)[:2]
 
 
+def _cli_and_resume(args, epochs, env, tool='train_vpd', share=1.):
+    """A train tool for `epochs`, then `--resume` to one more, both runs
+    in one process (`_run_tools`): (its seconds, the epochs' seconds)."""
+    return _run_tools([(tool, args + ['--num_epochs', str(epochs)]),
+                       (tool, args + ['--num_epochs', str(epochs + 1),
+                                      '--resume'])], env, share)[:2]
+
+
 def phase_train(card):
     result = {'phase': 'train', 'card': card,
               'step': _train_step_on_card(card)}
@@ -1651,9 +1732,7 @@ def phase_train(card):
     common = ['fs', '--save_dir', save, '--emb_dir', emb_dir,
               '--crop_shards', shard_dir, '--flow_img', 'flow', '--motion',
               '--checkpoint_frequency', '1']
-    first = _train_cli(common + ['--num_epochs', str(CLI_EPOCHS)], env)
-    resumed = _train_cli(common + ['--num_epochs', str(CLI_EPOCHS + 1),
-                                   '--resume'], env)
+    run_s, epoch_s = _cli_and_resume(common, CLI_EPOCHS, env)
     with open(os.path.join(save, 'loss.json')) as fp:
         losses = json.load(fp)
     if [r['epoch'] for r in losses] != list(range(1, CLI_EPOCHS + 2)) or \
@@ -1682,10 +1761,9 @@ def phase_train(card):
         raise AssertionError('extraction did not launch the preprocess '
                              'kernel')
     per_epoch = 100 * (200 + 40)  # the CLI's virtual epoch at batch 100
-    epoch_s = first[1] + resumed[1]
     result['cli'] = {
         'crops': len(keys), 'batch': 100, 'epochs': len(epoch_s),
-        'run_seconds': [first[0], resumed[0]], 'epoch_seconds': epoch_s,
+        'run_seconds': run_s, 'epoch_seconds': epoch_s,
         'crops_per_s_per_epoch': [per_epoch / s for s in epoch_s],
         'losses': [[r['train'], r['val']] for r in losses],
         'extracted_rows': len(embs['video0'])}
@@ -1895,11 +1973,9 @@ def _cached_cli(train, env):
               train['shard_dir'], '--flow_img', 'flow', '--motion',
               '--checkpoint_frequency', '1']
     save = os.path.join(train['root'], 'run_cache')
-    first = _train_cli(common + ['--save_dir', save, '--hbm_cache',
-                                 '--num_epochs', str(CLI_CACHE_EPOCHS)], env)
-    resumed = _train_cli(common + ['--save_dir', save, '--hbm_cache',
-                                   '--num_epochs', str(CLI_CACHE_EPOCHS + 1),
-                                   '--resume'], env)
+    run_s, epoch_s = _cli_and_resume(common + ['--save_dir', save,
+                                               '--hbm_cache'],
+                                     CLI_CACHE_EPOCHS, env)
     with open(os.path.join(save, 'loss.json')) as fp:
         losses = json.load(fp)
     if [r['epoch'] for r in losses] != list(range(1, CLI_CACHE_EPOCHS + 2)) \
@@ -1917,11 +1993,10 @@ def _cached_cli(train, env):
     workers = _train_cli(common + ['--save_dir', os.path.join(
         train['root'], 'run_workers'), '--num_workers', '2',
         '--num_epochs', '1'], env, share=CLI_SHARE)
-    epoch_s = first[1] + resumed[1]
     per_epoch = 100 * (200 + 40)
     return save, {
         'batch': 100, 'epochs': len(epoch_s),
-        'run_seconds': [first[0], resumed[0]], 'epoch_seconds': epoch_s,
+        'run_seconds': run_s, 'epoch_seconds': epoch_s,
         'crops_per_s_per_epoch': [per_epoch / s for s in epoch_s],
         'streamed_epoch_seconds': train['cli_epoch_seconds'],
         'losses': [[r['train'], r['val']] for r in losses],
@@ -2173,11 +2248,8 @@ def phase_teacher(card, train):
     common = ['--dataset', '3d', '--save_dir', save,
               '--checkpoint_frequency', '1', '--render_preview_frequency',
               '0']
-    first = _train_cli(common + ['--num_epochs', str(TEACHER_EPOCHS)], env,
-                       'train_vipe', share=CLI_SHARE)
-    resumed = _train_cli(common + ['--num_epochs', str(TEACHER_EPOCHS + 1),
-                                   '--resume'], env, 'train_vipe',
-                         share=CLI_SHARE)
+    run_s, epoch_s = _cli_and_resume(common, TEACHER_EPOCHS, env,
+                                     'train_vipe', share=CLI_SHARE)
     with open(os.path.join(save, 'loss.json')) as fp:
         losses = json.load(fp)
     if [r['epoch'] for r in losses] != list(range(1, TEACHER_EPOCHS + 2)) \
@@ -2206,7 +2278,8 @@ def phase_teacher(card, train):
     student_run = _train_cli(
         ['fs', '--save_dir', student, '--emb_dir', emb_dir, '--crop_shards',
          train['shard_dir'], '--flow_img', 'flow', '--motion',
-         '--checkpoint_frequency', '1', '--num_epochs', '1'], sports_env)
+         '--checkpoint_frequency', '1', '--num_epochs', '1'], sports_env,
+        share=CLI_SHARE)
     with open(os.path.join(student, 'loss.json')) as fp:
         student_losses = json.load(fp)
     if not np.isfinite([student_losses[0]['train'],
@@ -2218,12 +2291,11 @@ def phase_teacher(card, train):
                            os.path.join(root, 'student_embs'))
     # batches of 100: 50,000 train + 5,000 val rows, cut to CLI_SHARE
     per_epoch = int((500 + 50) * CLI_SHARE)
-    epoch_s = first[1] + resumed[1]
     emit({'phase': 'teacher', 'card': card,
           'mocap': {'families': len(MOCAP_DIRS), 'poses_2d': poses_2d,
                     'write_seconds': corpus_s},
           'cli': {'batch': 100, 'epochs': len(epoch_s),
-                  'run_seconds': [first[0], resumed[0]],
+                  'run_seconds': run_s,
                   'epoch_seconds': epoch_s,
                   'rows_per_s_per_epoch': [100 * per_epoch / s
                                            for s in epoch_s],
@@ -3487,11 +3559,7 @@ def _effnet_cli(train):
               '--crop_shards', train['shard_dir'], '--flow_img', 'flow',
               '--motion', '--checkpoint_frequency', '1', '--encoder_arch',
               EFFNET_ARCH]
-    first = _train_cli(common + ['--num_epochs', str(EFFNET_CLI_EPOCHS)],
-                       env)
-    resumed = _train_cli(common + ['--num_epochs',
-                                   str(EFFNET_CLI_EPOCHS + 1), '--resume'],
-                         env)
+    run_s, epoch_s = _cli_and_resume(common, EFFNET_CLI_EPOCHS, env)
     with open(os.path.join(save, 'loss.json')) as fp:
         losses = json.load(fp)
     if [r['epoch'] for r in losses] != list(range(
@@ -3513,10 +3581,9 @@ def _effnet_cli(train):
             count != 200 * (EFFNET_CLI_EPOCHS + 1):
         raise AssertionError('effnet run: arch {}, AdamW count {}'.format(
             cfg['encoder_arch'], count))
-    epoch_s = first[1] + resumed[1]
     per_epoch = 100 * (200 + 40)
     return save, {'batch': 100, 'epochs': len(epoch_s),
-                  'run_seconds': [first[0], resumed[0]],
+                  'run_seconds': run_s,
                   'epoch_seconds': epoch_s,
                   'crops_per_s_per_epoch': [per_epoch / s for s in epoch_s],
                   'losses': [[r['train'], r['val']] for r in losses],
@@ -4235,6 +4302,246 @@ def phase_mesh(card, train):
     return launches
 
 
+_RUN_BENCH = """import contextlib
+import importlib
+import json
+import sys
+import time
+
+
+def main(spec):
+    with open(spec) as fp:
+        runs = json.load(fp)
+    from vpd_tpu_torch.ops import preprocess as pre
+    done = []
+    for i, (tool, args) in enumerate(runs):
+        mod = importlib.import_module('vpd_tpu_torch.tools.' + tool)
+        sys.argv = [tool] + args
+        out = '{}.{}.out'.format(spec, i)
+        pre.launches = 0
+        t0 = time.perf_counter()
+        with open(out, 'w') as fp, contextlib.redirect_stdout(fp):
+            mod.main()
+        done.append({'seconds': time.perf_counter() - t0,
+                     'b1_launches': pre.launches, 'stdout': out})
+    with open(spec + '.done', 'w') as fp:
+        json.dump(done, fp)
+
+
+if __name__ == '__main__':  # not in a spawned PNG writer
+    main(sys.argv[1])
+"""
+
+
+def _json_lines(lines):
+    out = []
+    for line in lines:
+        if line.startswith('{'):
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                pass
+    return out
+
+
+def _bench_tools(runs):
+    """`vpd_tpu_torch.tools.<tool>`'s `main` on `args` for each (tool,
+    args) of `runs`, one after the other in one process (a runner that
+    sets B1's launch count to 0 before each `main` and reads it after),
+    in the environment the script started in, temp files under WORK. A run that raises fails the phase. For each
+    run: (its JSON lines, its stdout lines, B1's launches in it, its
+    seconds)."""
+    script = os.path.join(WORK, 'run_bench.py')
+    if not os.path.exists(script):
+        with open(script, 'w') as fp:
+            fp.write(_RUN_BENCH)
+    tmp = os.path.join(WORK, 'bench_tmp')
+    os.makedirs(tmp, exist_ok=True)
+    fd, spec = tempfile.mkstemp(suffix='.json', dir=tmp)
+    with os.fdopen(fd, 'w') as fp:
+        json.dump([[tool, list(args)] for tool, args in runs], fp)
+    env = dict(_ENV0, TMPDIR=tmp, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, _ENV0.get('PYTHONPATH')) if p))
+    proc = subprocess.run([sys.executable, script, spec], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError('{} failed ({}): {}'.format(
+            [r[0] for r in runs], proc.returncode, proc.stderr[-3000:]))
+    with open(spec + '.done') as fp:
+        done = json.load(fp)
+    out = []
+    for run in done:
+        with open(run['stdout']) as fp:
+            lines = fp.read().splitlines()
+        out.append((_json_lines(lines), lines, run['b1_launches'],
+                    run['seconds']))
+    return out
+
+
+def _all_finite(obj, where):
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            _all_finite(v, '{}.{}'.format(where, k))
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            _all_finite(v, '{}[{}]'.format(where, i))
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool) \
+            and not math.isfinite(obj):
+        raise AssertionError('{} is {}'.format(where, obj))
+
+
+def _check_result(tool, result, extra=()):
+    """The tool's last JSON line: vpd_tpu's keys under the port's names
+    (BENCH_KEYS, plus `extra`), every number finite."""
+    keys = set(result)
+    if tool == 'bench_pipeline_e2e':
+        accs = {k for k in keys
+                if k.startswith('recognize_') and k.endswith('_acc')}
+        if not accs:
+            raise AssertionError('bench_pipeline_e2e: no recognition '
+                                 'accuracy in {}'.format(sorted(keys)))
+        keys -= accs
+    if keys != BENCH_KEYS[tool] | set(extra):
+        raise AssertionError('{}: keys {} != {}'.format(
+            tool, sorted(keys), sorted(BENCH_KEYS[tool] | set(extra))))
+    _all_finite(result, tool)
+
+
+def _bench_preprocess(run):
+    """bench_preprocess at its defaults: B1's equality (atol TOL) on its
+    line, the rows, and B1's launches: 1 for the equality, then a batch
+    size's warm-up and DEPTH x rounds in each of its two stages."""
+    from vpd_tpu_torch.tools import bench_preprocess as bench_pre
+
+    results, lines, launches, secs = run
+    equality = [line for line in lines if line.startswith('# equality ok')]
+    if len(equality) != 1:
+        raise AssertionError('bench_preprocess printed no equality line')
+    diff = float(equality[0].rsplit('=', 1)[1])
+    if not diff <= TOL:
+        raise AssertionError('bench_preprocess: B1 against the plain path '
+                             '{} > {}'.format(diff, TOL))
+    rows, verdict = results[:-1], results[-1]
+    _check_result('bench_preprocess', verdict)
+    for row in rows:
+        if set(row) != BENCH_PREPROCESS_ROW_KEYS:
+            raise AssertionError('bench_preprocess row {}'.format(row))
+        _all_finite(row, 'bench_preprocess')
+        if row['kernel_variant'] != 'vector':
+            raise AssertionError('B1 ran its {} variant'.format(
+                row['kernel_variant']))
+    rounds = 3  # the tool's default
+    want = 1 + len(rows) // 2 * (1 + 2 * rounds * bench_pre.DEPTH)
+    if launches != want:
+        raise AssertionError('bench_preprocess launched B1 {} times, '
+                             'expected {}'.format(launches, want))
+    return {'equality_max_abs_diff': diff, 'rows': rows,
+            'verdict': verdict['verdict'], 'b1_launches': launches,
+            'seconds': secs}, launches
+
+
+def _bench_extract(runs):
+    """bench_extract_e2e --flow from PNGs, then from shards of the same
+    corpus: the busy fraction in (0, BENCH_BUSY_MAX] and B1's launches
+    (the warm-up, a chunk each, `reps`)."""
+    out, total = {}, 0
+    for mode, (results, _, launches, secs) in zip(('png', 'shards'), runs):
+        r = results[-1]
+        _check_result('bench_extract_e2e', r,
+                      ['pack_rate'] if mode == 'shards' else [])
+        if not 0 < r['chip_busy_fraction'] <= BENCH_BUSY_MAX:
+            raise AssertionError('chip_busy_fraction {}'.format(
+                r['chip_busy_fraction']))
+        n, b = r['num_crops'], r['batch_size']
+        want = 1 + -(-n // b) + max(1, n // b)
+        if launches != want:
+            raise AssertionError('bench_extract_e2e ({}) launched B1 {} '
+                                 'times, expected {}'.format(mode, launches,
+                                                             want))
+        out[mode] = dict(r, b1_launches=launches, seconds=secs)
+        total += launches
+    return out, total
+
+
+def _trace_reading():
+    """TRACE_LAUNCHES embeds of the slice phase's flow student (batch
+    BATCH, orig + flip) inside `core/profiling.trace`, read back: the
+    kernel events, B1's among them, the device's busy share."""
+    model, cfg = ap.load_student_dir(os.path.join(WORK, 'student_flow'))
+    embed = ap.make_variant_embed(model, cfg)
+    rgb, flow = _crops(torch.Generator(device='cuda').manual_seed(SEED),
+                       BATCH, 3)
+    embed(rgb, flow, 0).cpu()  # cuDNN's algorithms chosen
+    log_dir = os.path.join(WORK, 'trace')
+    t0 = time.perf_counter()
+    with profiling.trace(log_dir):
+        for i in range(TRACE_LAUNCHES):
+            embed(rgb, flow, i)
+    traced_s = time.perf_counter() - t0
+    act = profiling.device_activity(log_dir)
+    b1 = sum(c for name, c in act['kernels'].items()
+             if 'preprocess_vector' in name or 'preprocess_general' in name)
+    if b1 != TRACE_LAUNCHES or act['kernel_events'] <= b1:
+        raise AssertionError('the trace holds {} B1 events of {} kernel '
+                             'events, expected {} B1'.format(
+                                 b1, act['kernel_events'], TRACE_LAUNCHES))
+    top = sorted(act['kernels'].items(), key=lambda kv: -kv[1])[:5]
+    return {'embeds': TRACE_LAUNCHES, 'kernel_events': act['kernel_events'],
+            'b1_events': b1, 'device_events': act['device_events'],
+            'distinct_kernels': len(act['kernels']),
+            'window_ms': act['window_us'] / 1e3,
+            'busy_ms': act['busy_us'] / 1e3,
+            'busy_share': act['busy_share'], 'traced_seconds': traced_s,
+            'most_launched': [[name[:120], n] for name, n in top]}
+
+
+def phase_bench(card):
+    """The five measurement tools at full width (BENCH_DEPTH cuts their
+    depth), their last lines checked: the ensemble in a process of its
+    own, the other runs one after the other in one process; B1's
+    launches on two paths; a trace of the slice's embed read."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result = {'phase': 'bench', 'card': card, 'env_set_by_earlier_phases': {
+        k: v[:200] for k, v in os.environ.items() if _ENV0.get(k) != v}}
+    print('# bench: environment set by earlier phases: {}'.format(
+        result['env_set_by_earlier_phases']), flush=True)
+    corpus = os.path.join(WORK, 'bench_corpus')
+    train_corpus = os.path.join(WORK, 'bench_train_corpus')
+    extract = BENCH_DEPTH['bench_extract_e2e'] + ['--flow', '--corpus_dir',
+                                                  corpus]
+    train = BENCH_DEPTH['bench_train_e2e'] + ['--corpus_dir', train_corpus]
+    pipeline = BENCH_DEPTH['bench_pipeline_e2e'] + [
+        '--work_dir', os.path.join(WORK, 'bench_pipeline')]
+    (pre_run, png, shards, train_png, train_hbm, pipe), (ens,) = (
+        _bench_tools([('bench_preprocess', BENCH_DEPTH['bench_preprocess']),
+                      ('bench_extract_e2e', extract),
+                      ('bench_extract_e2e', extract + ['--shards']),
+                      ('bench_train_e2e', train),
+                      ('bench_train_e2e', train + ['--hbm_cache']),
+                      ('bench_pipeline_e2e', pipeline)]),
+        _bench_tools([('bench_ensemble_train',
+                       BENCH_DEPTH['bench_ensemble_train'])]))
+    result['preprocess'], pre_launches = _bench_preprocess(pre_run)
+    result['extract'], extract_launches = _bench_extract([png, shards])
+    result['train'] = {}
+    for mode, run in (('png', train_png), ('hbm_cache', train_hbm)):
+        _check_result('bench_train_e2e', run[0][-1],
+                      ['cache_stage_s'] if mode == 'hbm_cache' else [])
+        result['train'][mode] = dict(run[0][-1], seconds=run[3])
+    for tool, key, run, args in (
+            ('bench_ensemble_train', 'ensemble', ens,
+             BENCH_DEPTH['bench_ensemble_train']),
+            ('bench_pipeline_e2e', 'pipeline', pipe, pipeline)):
+        _check_result(tool, run[0][-1])
+        result[key] = dict(run[0][-1], args=args, seconds=run[3])
+    result['trace'] = _trace_reading()
+    result['seconds'] = time.perf_counter() - t0
+    emit(result)
+    return {'bench_preprocess': pre_launches,
+            'bench_extract': extract_launches}
+
+
 def main():
     phase_env()
     card = card_line()
@@ -4259,15 +4566,17 @@ def main():
         effnet_launches, effnet_dir = phase_effnet(card, train)
         imported_launches = phase_torch_io(card, train, effnet_dir)
         mesh_launches = phase_mesh(card, train)
+        bench_launches = phase_bench(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # B1's launches on its six paths, each counted from 0 around its runs
-    # (the data-parallel extraction: summed over its two ranks)
+    # B1's launches on its eight paths, each counted from 0 around its
+    # runs (the data-parallel extraction: summed over its two ranks; the
+    # bench tools: in each tool's process)
     by_path = {'slice': slice_launches, 'yuv420_extraction': yuv420_launches,
                'prep_chain': prep_launches,
                'effnet_extraction': effnet_launches,
                'imported_extraction': imported_launches,
-               'data_parallel_extraction': mesh_launches}
+               'data_parallel_extraction': mesh_launches, **bench_launches}
     preprocess['launches'] = sum(by_path.values())
     preprocess['launches_by_path'] = by_path
     print(card)

@@ -908,6 +908,26 @@ def test_sequential_ensemble_matches_fused_on_card(cuda_device):
                                atol=2e-5)
 
 
+@pytest.mark.cuda
+def test_proposal_ensembles_capture_again_and_again(cuda_device):
+    """bench_ensemble_train's sequence in one process: fused, sequential,
+    fused, sequential ensembles of 3 members (12 graph captures). With
+    the cyclic collector free to run during a capture, the warm round's
+    first sequential capture failed on the H100 every time at one epoch
+    (ROADMAP C6); `graphed_rnn` now pauses it."""
+    from vpd_tpu_torch.tools.bench_ensemble_train import _synth_videos
+
+    X, y = _synth_videos(np.random.default_rng(0))
+    kw = dict(hidden_dim=128, ensemble_size=3, splits=5, num_epochs=1,
+              min_epochs=1, early_term_no_val_improvement=1,
+              samples_per_epoch=1000, batch_size=100, seq_len=250,
+              device=cuda_device)
+    for seed, fused in ((0, True), (0, False), (1, True), (1, False)):
+        ens = tprop.EnsembleProposal('gru', X, y, fused=fused, seed=seed,
+                                     **kw)
+        assert np.isfinite(np.asarray(ens.predict(X[0]))).all()
+
+
 # ----------------------------------------------- optical flow and codec
 
 def _flow_pairs(b, size, seed=0):

@@ -3,10 +3,13 @@
 An AST diff of argparse `add_argument` calls between `vpd_tpu/tools/*.py`
 and `vpd_tpu_torch/tools/*.py` for every tool both packages have: the
 same flags, except the port's `--device` (its entry points run on the
-GPU unless asked for the CPU) and `apply_vpd --preprocess`, which the
-port drops (one preprocess, the CUDA kernel or its plain twin). The
-only tools vpd_tpu has and the port does not are its benchmarks
-(`bench_*`, JAX measurements the port does not carry over).
+GPU unless asked for the CPU) and three flags the port drops:
+`apply_vpd --preprocess` (one preprocess, the CUDA kernel or its plain
+twin), `bench_preprocess --block_bs` (the CUDA kernel has no block of
+samples to tune) and `bench_pipeline_e2e --platform` (the port's
+`--device` is passed on to each stage instead). Every vpd_tpu tool has a
+counterpart; `bench_pallas_preprocess`'s is named `bench_preprocess`, as
+the port names the kernel's module.
 """
 
 import ast
@@ -23,16 +26,22 @@ PORT_TOOLS = os.path.join(REPO, 'vpd_tpu_torch', 'tools')
 NOT_TOOLS = {'__init__', 'paths'}
 NOT_PORTED = set()
 COMMON = [
-    'apply_vipe', 'apply_vpd', 'compute_flow', 'detect', 'dummy_2d_features',
-    'export_torch_model', 'extract_square_crops', 'import_torch_model',
-    'pack_crops', 'plot_losses', 'preprocess_3d_pose', 'recognize',
-    'recut_finegym_video', 'recut_fs_video', 'stack_features', 'train_vipe',
-    'train_vpd', 'view_2d_pose',
+    'apply_vipe', 'apply_vpd', 'bench_ensemble_train', 'bench_extract_e2e',
+    'bench_pipeline_e2e', 'bench_preprocess', 'bench_train_e2e',
+    'compute_flow', 'detect', 'dummy_2d_features', 'export_torch_model',
+    'extract_square_crops', 'import_torch_model', 'pack_crops',
+    'plot_losses', 'preprocess_3d_pose', 'recognize', 'recut_finegym_video',
+    'recut_fs_video', 'stack_features', 'train_vipe', 'train_vpd',
+    'view_2d_pose',
 ]
+# a port tool's vpd_tpu counterpart, where the names differ
+JAX_NAME = {'bench_preprocess': 'bench_pallas_preprocess'}
 # the counterpart of `__graft_entry__.dryrun_multichip`, not of a tool
 PORT_ONLY_TOOLS = {'dryrun_multichip'}
 PORT_ONLY_FLAGS = {'--device'}
-DROPPED_FLAGS = {'apply_vpd': {'--preprocess'}}
+DROPPED_FLAGS = {'apply_vpd': {'--preprocess'},
+                 'bench_preprocess': {'--block_bs'},
+                 'bench_pipeline_e2e': {'--platform'}}
 
 
 def _tools(path):
@@ -55,15 +64,18 @@ def flag_names(path):
 
 
 def test_the_port_has_every_tool_but_benchmarks():
-    jax_tools = {t for t in _tools(JAX_TOOLS) if not t.startswith('bench_')}
+    """Every vpd_tpu tool, its benchmarks included, has a counterpart."""
+    ported = {JAX_NAME.get(t, t) for t in COMMON}
     assert _tools(PORT_TOOLS) == set(COMMON) | PORT_ONLY_TOOLS
-    assert jax_tools - set(COMMON) == NOT_PORTED
-    assert len(COMMON) == 18
+    assert _tools(JAX_TOOLS) - ported == NOT_PORTED
+    assert ported <= _tools(JAX_TOOLS)
+    assert len(COMMON) == 23
 
 
 @pytest.mark.parametrize('tool', COMMON)
 def test_port_flags_equal_vpd_tpu(tool):
-    want = flag_names(os.path.join(JAX_TOOLS, tool + '.py'))
+    want = flag_names(os.path.join(JAX_TOOLS, JAX_NAME.get(tool, tool)
+                                   + '.py'))
     got = flag_names(os.path.join(PORT_TOOLS, tool + '.py'))
     assert want, tool
     assert want - got == DROPPED_FLAGS.get(tool, set()), \

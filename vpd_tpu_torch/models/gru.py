@@ -51,6 +51,7 @@ mask source draws each member's mask from that member's generator.
 """
 
 import contextlib
+import gc
 import math
 
 import torch
@@ -405,8 +406,20 @@ def graphed_rnn(model, shape, input_grad=False):
     lengths = torch.full(shape[:2], shape[2], dtype=torch.long,
                          device=p.device)
     rnn.train()
-    # sets an instance attribute `forward` that replays the graphs
-    torch.cuda.make_graphed_callables(rnn, (x, lengths), num_warmup_iters=2)
+    # A cyclic collection during the captures can run a finalizer whose
+    # CUDA call a capture forbids, which invalidates it (the sixth
+    # capture of a proposal ensemble's run failed so on an H100): collect
+    # now and keep the collector off until both graphs are captured.
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        # sets an instance attribute `forward` that replays the graphs
+        torch.cuda.make_graphed_callables(rnn, (x, lengths),
+                                          num_warmup_iters=2)
+    finally:
+        if collecting:
+            gc.enable()
     try:
         yield model
     finally:
