@@ -1,0 +1,10 @@
+"""idle_pct.infer: the share of the traced window (`vpdbench.traced`,
+around one pipelined call of chunks) in which no kernel, copy or memset
+ran."""
+
+
+def read(r):
+    t = r.get('trace')
+    if r.get('kind') != 'extract' or not t or not t['window_us']:
+        return None
+    return 100. * (1. - t['busy_us'] / t['window_us'])

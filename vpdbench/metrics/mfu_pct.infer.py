@@ -1,0 +1,11 @@
+"""mfu_pct.infer: the encoder's forward FLOPs of the window's crops (2
+variants a crop, `vpdbench/flops.py`) over the window's time, as a share
+of the card's dense bf16 peak (`vpdbench/peaks.json`)."""
+
+
+def read(r):
+    w, peaks = r.get('window'), r.get('peaks')
+    if r.get('kind') != 'extract' or not w or not peaks:
+        return None
+    flops = r['flops']['infer_per_sample'] * w['samples']
+    return 100. * flops / w['seconds'] / peaks['bf16_flops_per_s']

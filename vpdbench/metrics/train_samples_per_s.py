@@ -1,0 +1,10 @@
+"""train_samples_per_s: the samples of the window's completed epochs over
+the window's wall time, up to the synchronize that ends it (host
+clock). A sample is what the cell's `why` names."""
+
+
+def read(r):
+    w = r.get('window')
+    if r.get('kind') != 'train' or not w or not w['seconds']:
+        return None
+    return w['samples'] / w['seconds']
