@@ -226,7 +226,8 @@ line each; any failure raises and exits non-zero:
              `bench_extract`). Then 4 embeds of
              the slice phase's flow student inside `core/profiling.
              trace`: the kernel events, B1's among them, and the share of
-             the traced window the card was busy
+             the traced window (the trace's own span around the embeds)
+             the card was busy
 
 Each phase's line carries `script_seconds`, the script's time so far. A
 train CLI and its `--resume` run share one process. The last three lines
@@ -4466,7 +4467,9 @@ def _bench_extract(runs):
 def _trace_reading():
     """TRACE_LAUNCHES embeds of the slice phase's flow student (batch
     BATCH, orig + flip) inside `core/profiling.trace`, read back: the
-    kernel events, B1's among them, the device's busy share."""
+    kernel events, B1's among them, the device's busy share of the
+    window, the trace's span around the embeds and their synchronize
+    (`TRACE_SPAN`; the profiler's start and stop are outside it)."""
     model, cfg = ap.load_student_dir(os.path.join(WORK, 'student_flow'))
     embed = ap.make_variant_embed(model, cfg)
     rgb, flow = _crops(torch.Generator(device='cuda').manual_seed(SEED),

@@ -30,7 +30,9 @@ The device crop cache holds the shards' bytes on the card, its staging
 peaks at the corpus plus at most one shard, and the cached step gathers
 without a host sync; with cuDNN deterministic, the cached and streamed
 steps on the same rows give the same loss (rel 1e-6) and parameters (max
-rel 1e-5); the CLI trains one epoch from the cache on the card.
+rel 1e-5); the CLI trains one epoch from the cache on the card. Under
+the profiler the step's spans read positive device times that fit inside
+the step's.
 
 The VIPE* teacher (no hand kernel: cuBLAS linears and plain torch): its
 train step at dropout 0 on cuda against the same step on the CPU with TF32
@@ -623,6 +625,46 @@ def test_cached_step_makes_no_host_sync(cuda_device, tmp_path):
         torch.cuda.set_sync_debug_mode('default')
     assert np.isfinite(torch.stack(losses).tolist()).all()
     assert state.step == 4
+
+
+@pytest.mark.cuda
+def test_step_spans_time_the_stages_on_card(cuda_device, tmp_path):
+    """Under the profiler the cached step's input, fwd_bwd and adamw spans
+    read positive device ms that together fit inside the step's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vpd_tpu_torch.core import profiling
+
+    cache, _, indexed = _cached_and_streamed(cuda_device, tmp_path)
+    cfg, model = _student(cuda_device)
+    state = tvpd.create_state(model, 1e-3)
+    step = tvpd.make_cached_train_step(*cfg['rgb_mean_std'], img_dim=S,
+                                       use_flow=True,
+                                       aug_dtype=torch.bfloat16)
+    batches = [{k: torch.from_numpy(v).to(cuda_device)
+                for k, v in indexed.next_batch().items()} for _ in range(4)]
+    step(state, batches[0], 0, cache.arrays)
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            for batch in batches[1:]:
+                with profiling.span('test.step', cuda_device):
+                    step(state, batch, 0, cache.arrays)
+            torch.cuda.synchronize()
+        records, dropped = profiling.span_records()
+    finally:
+        profiling.clear_spans()
+    steps = [r for r in records if r['name'] == 'test.step']
+    assert len(steps) == 3 and dropped == 0
+    for s, want in zip(steps, (1, 2, 3)):
+        inner = [r for r in records if r['parent'] == s['id']]
+        assert [(r['name'], r['ids']) for r in inner] == [
+            (name, {'step': want}) for name in (
+                'vpd.train.input', 'vpd.train.fwd_bwd', 'vpd.train.adamw')]
+        assert all(r['device_ms'] > 0 for r in inner), inner
+        assert sum(r['device_ms'] for r in inner) <= s['device_ms'] + 1e-3
 
 
 @pytest.mark.cuda

@@ -14,6 +14,8 @@ bf16 channels_last buffer, and the encoder runs once over it. Decode runs
 one chunk ahead and readback one chunk behind (`core/pipeline`). With
 colour-jitter variants (`jitter` > 0) every variant is built by the plain
 transforms instead, as vpd_tpu builds them without its Pallas kernel.
+Under a profiler the encoder's run over a chunk's variants is the span
+`vpd.extract.encode` (`core/profiling.span`, id `chunk`).
 
 `upload_codec='yuv420'` ships the rgb stream as packed YUV 4:2:0 planes
 (`data/upload_codec.py`, half the bytes): packed on the host, or gathered
@@ -38,6 +40,7 @@ from ..core import checkpoint as ckpt
 from ..core.io import load_json, store_pickle
 from ..core.mesh import gather_object
 from ..core.pipeline import run_pipelined
+from ..core.profiling import span
 from ..data.augment import (batch_color_jitter, eval_transform_batch,
                             flip_batch, normalize_rgb, sample_color_jitter)
 from ..data.crops import decode_crop_batch
@@ -139,7 +142,8 @@ def _make_kernel_embed(encoder, mean, std, use_flow, flip, out_dtype):
                 rgb_u8, fl, torch.zeros(b, dtype=torch.int32,
                                         device=rgb_u8.device),
                 mean, std, out_dtype=out_dtype)
-        embs = encoder(x.permute(0, 3, 1, 2))  # NHWC buffer, NCHW view
+        with span('vpd.extract.encode', x.device, chunk=chunk_i):
+            embs = encoder(x.permute(0, 3, 1, 2))  # NHWC buffer, NCHW view
         return embs.reshape(x.shape[0] // b, b, -1).transpose(0, 1)
 
     return fn
@@ -176,7 +180,9 @@ def _make_jitter_embed(encoder, mean, std, use_flow, jitter, flip, device,
             variants.append(xj)
         if flip:
             variants += [flip_batch(v, use_flow) for v in variants]
-        embs = encoder(torch.cat(variants).permute(0, 3, 1, 2))
+        x = torch.cat(variants)
+        with span('vpd.extract.encode', x.device, chunk=chunk_i):
+            embs = encoder(x.permute(0, 3, 1, 2))
         return embs.reshape(len(variants), b, -1).transpose(0, 1)
 
     return fn

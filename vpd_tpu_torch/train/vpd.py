@@ -12,7 +12,11 @@ master parameters and bf16 compute (`models/resnet.py`), and AdamW steps.
 The step reads nothing back from the device: its metrics stay there
 until the epoch ends (`core/metrics.fetch_metrics`). The cached steps
 take index batches and gather the pixel rows from the device crop cache
-(`data/hbm_cache.py`) first, then run the same body.
+(`data/hbm_cache.py`) first, then run the same body. Under a profiler a
+step's stages are spans (`core/profiling.span`) with the step's id
+`step`, the optimizer's step count: `vpd.train.input` (the gather and
+the augmentation), `vpd.train.fwd_bwd` (`forward_backward`) and
+`vpd.train.adamw` (`optimizer_step`).
 
 Randomness: vpd_tpu folds the step counter into one key per run
 (`jax.random.fold_in(rng, state.step)`). Here a step's augmentation
@@ -41,6 +45,7 @@ import torch
 from torch import nn
 
 from ..core.mesh import all_reduce_grads, part_rows
+from ..core.profiling import span
 from ..data.augment import (eval_transform_batch, sample_train_augment,
                             train_augment_batch)
 from ..models.fc import FCNet, FlaxDropout, set_dropout_draw
@@ -124,24 +129,27 @@ def forward_backward(state, imgs, emb, dropout_draw=None):
     a student that draws none. On a data mesh the gradients are then
     summed over the data group. Returns this rank's loss, on the
     device."""
-    model = state.model.train()
-    if dropout_draw is None:
-        out = model(imgs.permute(0, 3, 1, 2))
-    else:
-        set_dropout_draw(model, dropout_draw)
-        try:
+    with span('vpd.train.fwd_bwd', imgs.device, step=state.step):
+        model = state.model.train()
+        if dropout_draw is None:
             out = model(imgs.permute(0, 3, 1, 2))
-        finally:
-            set_dropout_draw(model, None)
-    loss_sum = torch.sum(torch.square(out - emb))
-    state.optimizer.zero_grad(set_to_none=True)
-    loss_sum.backward()
-    all_reduce_grads(state.model.parameters(), state.data_group)
-    return loss_sum.detach()
+        else:
+            set_dropout_draw(model, dropout_draw)
+            try:
+                out = model(imgs.permute(0, 3, 1, 2))
+            finally:
+                set_dropout_draw(model, None)
+        loss_sum = torch.sum(torch.square(out - emb))
+        state.optimizer.zero_grad(set_to_none=True)
+        loss_sum.backward()
+        all_reduce_grads(state.model.parameters(), state.data_group)
+        return loss_sum.detach()
 
 
 def optimizer_step(state):
-    state.optimizer.step()
+    group = state.optimizer.param_groups[0]
+    with span('vpd.train.adamw', group['params'][0].device, step=state.step):
+        state.optimizer.step()
     state.step += 1
 
 
@@ -271,7 +279,8 @@ def make_train_step(mean, std, img_dim=128, use_flow=False, use_mask=True,
                             jitter_order)
 
     def step(state, batch, seed):
-        imgs = augment(batch, seed, state.step, state.part)
+        with span('vpd.train.input', batch['rgb'].device, step=state.step):
+            imgs = augment(batch, seed, state.step, state.part)
         return apply_train_update(
             state, imgs, batch['emb'],
             consts.dropout_draw(imgs.device, seed, state.step, state.part)
@@ -312,9 +321,10 @@ def make_cached_train_step(mean, std, img_dim=128, use_flow=False,
         ('mask',) if use_mask else ())
 
     def step(state, batch, seed, cache):
-        pixels = cache_gather(cache, batch['idx'], names, row_offset)
-        imgs = augment({**pixels, 'flip': batch['flip']}, seed, state.step,
-                       state.part)
+        with span('vpd.train.input', batch['idx'].device, step=state.step):
+            pixels = cache_gather(cache, batch['idx'], names, row_offset)
+            imgs = augment({**pixels, 'flip': batch['flip']}, seed,
+                           state.step, state.part)
         return apply_train_update(
             state, imgs, batch['emb'],
             consts.dropout_draw(imgs.device, seed, state.step, state.part)

@@ -15,6 +15,10 @@ train through the cached steps, which gather the pixels on the device.
 (`models/torch_compat.py`); EfficientNet students (`effnet0`..`effnet7`,
 `models/efficientnet.py`) always start from random init, as vpd_tpu's do.
 
+Under a profiler (`core/profiling.span`) an epoch is the span
+`vpd.train.epoch` (training, validation, checkpoints; id `epoch`), and
+each `next_batch` inside it `vpd.train.sampler` (ids `epoch`, `batch`).
+
 On a data mesh of several ranks (`core/mesh.py`, one process per GPU
 under torchrun) every rank runs the trainer on its sources' rows of the
 global batches: the step sums gradients and BatchNorm statistics over
@@ -34,6 +38,7 @@ from ..core import checkpoint as ckpt
 from ..core.io import load_json, store_json
 from ..core.mesh import all_reduce_sum, get_mesh, is_primary, replicate
 from ..core.metrics import fetch_metrics
+from ..core.profiling import span
 from ..data.augment import RGB_MEAN_STD
 from ..models import build_effnet, build_encoder
 from ..models.flax_weights import (encoder_to_flax, load_encoder_from_flax,
@@ -243,11 +248,13 @@ class VPDTrainer:
             comps['optimizer'] = optimizer_to_flax(self.state)
         ckpt.save_bundle(self.save_dir, name, comps)
 
-    def _epoch(self, source, train):
+    def _epoch(self, source, epoch, train):
         # metrics stay on the device until the epoch ends: one readback
         metrics = []
-        for _ in range(source.num_batches):
-            batch = _to_device(source.next_batch(), self.device)
+        for i in range(source.num_batches):
+            with span('vpd.train.sampler', epoch=epoch, batch=i):
+                host = source.next_batch()
+            batch = _to_device(host, self.device)
             if train and self.cache is not None:
                 m = self.train_step(self.state, batch, self.seed, self.cache)
             elif train:
@@ -268,28 +275,31 @@ class VPDTrainer:
         return total / max(n, 1)
 
     def train_one_epoch(self, epoch):
-        t0 = time.perf_counter()
-        train_loss = self._epoch(self.train_source, train=True)
-        val_loss = (self._epoch(self.val_source, train=False)
-                    if self.val_source is not None else float('nan'))
-        self.epoch_seconds.append(time.perf_counter() - t0)
+        with span('vpd.train.epoch', self.device, epoch=epoch):
+            t0 = time.perf_counter()
+            train_loss = self._epoch(self.train_source, epoch, train=True)
+            val_loss = (self._epoch(self.val_source, epoch, train=False)
+                        if self.val_source is not None else float('nan'))
+            self.epoch_seconds.append(time.perf_counter() - t0)
 
-        self.losses.append({
-            'epoch': epoch, 'train': train_loss, 'val': val_loss,
-            'dataset_train': [(self.config.get('dataset', ''), train_loss)],
-            'dataset_val': [(self.config.get('dataset', ''), val_loss)]})
-        if self.save_dir and self.primary:
-            store_json(os.path.join(self.save_dir, 'loss.json'), self.losses)
+            dataset = self.config.get('dataset', '')
+            self.losses.append({
+                'epoch': epoch, 'train': train_loss, 'val': val_loss,
+                'dataset_train': [(dataset, train_loss)],
+                'dataset_val': [(dataset, val_loss)]})
+            if self.save_dir and self.primary:
+                store_json(os.path.join(self.save_dir, 'loss.json'),
+                           self.losses)
 
-        is_best = self.selector.update(val_loss)
-        if self.save_dir:
-            if is_best:
-                self.save_model('best_epoch')
-            freq = self.config.get('checkpoint_frequency')
-            if freq and epoch % freq == 0:
-                self.save_model('epoch{:04d}'.format(epoch),
-                                with_optimizer=True)
-        return train_loss, val_loss
+            is_best = self.selector.update(val_loss)
+            if self.save_dir:
+                if is_best:
+                    self.save_model('best_epoch')
+                freq = self.config.get('checkpoint_frequency')
+                if freq and epoch % freq == 0:
+                    self.save_model('epoch{:04d}'.format(epoch),
+                                    with_optimizer=True)
+            return train_loss, val_loss
 
     def fit(self, start_epoch=1, log=print):
         epoch = 0
