@@ -20,12 +20,17 @@ line each; any failure raises and exits non-zero:
              {128, 512}, D in {32, 64}, at lengths on its tile edges with
              D in {1, 7, 20, 32, 64, 128}, a subset and identical
              sequences against the f64 host DP, and its launch's
-             registers, spills and resident warps
+             registers, spills and resident warps; the train step's
+             input kernel (ops/augment) at B = 2048, 128x128, 5 channels
+             against the plain gather + augmentation on the same draws
+             (bf16 and float32), bit-equal from cache rows and from the
+             gathered batch and from run to run, ptxas's resources, timed
+             beside its bounds and the plain path
   recognize  DTW few-shot recognition and retrieval end to end at the
              full fs protocol (the real all.txt, val ids, few-shot split
              files and cached fps; 1446 actions; synthetic (2, 32)
              embeddings with a class signal): the recognize CLI on cuda
-             for -ne 4 16 64 x 10 trials, -ne -1, and --retrieve, with
+             for -ne 4 16 64 x 5 trials, -ne -1, and --retrieve, with
              B2's launch count checked, the full-data accuracy held at
              >= 0.9, the d1 sweep held against the twin on the card and a
              twin-backed run of the whole protocol; B2 timed at the kNN
@@ -43,8 +48,9 @@ line each; any failure raises and exits non-zero:
              ResNet-34 + motion head, bf16 compute over float32 master
              weights, RGB + flow + mask, bf16 augmentation) on batches
              made on the card: crops/s, ms per step split by CUDA events
-             into augment (and its stages), fwd + bwd and AdamW, peak
-             memory, fwd + bwd TFLOP/s against the bf16 peak, and the
+             into augment, fwd + bwd and AdamW, the input kernel's
+             launches (one a timed step), peak memory, fwd + bwd
+             TFLOP/s against the bf16 peak, and the
              loss falling on one batch; then `python -m vpd_tpu_torch.tools.train_vpd` end to
              end on a synthetic fs corpus in raw shards (1 epoch at the
              default batch of 100, --resume to 2), its checkpoints read
@@ -53,9 +59,9 @@ line each; any failure raises and exits non-zero:
              crops with flow and masks (2.75 GB, one virtual epoch)
              staged in the device crop cache (seconds, GB/s, peak memory
              held to the corpus plus one shard, rows read back byte for
-             byte); the cached step at B = 2048 (ms, gather ms beside its
-             byte bound, crops/s) beside the train phase's streamed
-             step, and one step of each path on the same rows with cuDNN
+             byte); the cached step at B = 2048 (ms, crops/s, the input
+             kernel's launches: one a timed step) beside the train
+             phase's streamed step, and one step of each path on the same rows with cuDNN
              deterministic (loss rel 1e-6, parameters max rel 1e-5); the
              CLI with --hbm_cache (1 epoch, --resume to 2) beside the
              streamed CLI's epochs, and one epoch (a quarter of its
@@ -87,7 +93,7 @@ line each; any failure raises and exits non-zero:
              fs rows, batch 50; proposals at batch 100 on 250-frame
              windows), depth cut to 8 epochs (3 for lstm and cnn; the
              CLI's default is 500) and the detect CLI's to 2 (200): the
-             recognize CLI with gru + attention fused at -ne 4 16 64 x 10
+             recognize CLI with gru + attention fused at -ne 4 16 64 x 5
              trials and at -ne -1 (accuracy held at >= 0.9), `-w` on its
              saved head giving the same test_pred.csv, one lstm and one
              cnn run; 3 members of the fused sweep against sequential
@@ -115,7 +121,7 @@ line each; any failure raises and exits non-zero:
              LK, and RAFT's parts (encoders, correlation pyramid, one
              lookup, one update block, upsampling); the yuv420 decode bit
              for bit against the numpy reference; `python -m
-             vpd_tpu_torch.tools.compute_flow` on 512 synthetic pairs with
+             vpd_tpu_torch.tools.compute_flow` on 256 synthetic pairs with
              --model lk under raw, yuv420 and y8 and with --model raft,
              its PNGs read back against the same flow in this process,
              pairs/s and the upload packer that ran; `apply_vpd
@@ -209,14 +215,15 @@ line each; any failure raises and exits non-zero:
              heads at the tools' widths): bench_preprocess
              at its defaults (B = 1024 and 4096, 3 rounds; B1's equality
              with the plain path at atol 0.02, its rows and verdict);
-             bench_extract_e2e --flow at batch 1,024 on 2,048 crops (of
+             bench_extract_e2e --flow at batch 1,024 on 1,024 crops (of
              its default 4,096) from PNGs and from shards of the same
              corpus (decode, end-to-end and card-only crops/s, busy
              fraction in (0, 1.05]); bench_train_e2e (B = 512, 8 batches
              an epoch) for 2 epochs (of 3) from PNGs and with --hbm_cache;
-             bench_ensemble_train --rounds 1 --epochs 1 (of 3 and 20);
-             bench_pipeline_e2e --shards --num_epochs 1 --loc_epochs 2
-             --samples_per_epoch 1000 on 3 + 1 videos (of 3 epochs, 200,
+             bench_ensemble_train --rounds 1 --epochs 1
+             --samples_per_epoch 500 (of 3, 20 and 1,000);
+             bench_pipeline_e2e --shards --num_epochs 1 --loc_epochs 1
+             --samples_per_epoch 500 on 3 + 1 videos (of 3 epochs, 200,
              5,000 and 6 + 2; corpus, pack_crops, train_vpd, apply_vpd,
              recognize, detect, each its own process). Each must end
              without an error, with vpd_tpu's keys (under the port's
@@ -274,6 +281,7 @@ from vpd_tpu_torch.geometry.camera import random_project_offsets
 from vpd_tpu_torch.infer import apply_vipe as av
 from vpd_tpu_torch.infer import apply_vpd as ap
 from vpd_tpu_torch.ops import _build
+from vpd_tpu_torch.ops import augment as aug_op
 from vpd_tpu_torch.ops import dtw_kernel as dtwk
 from vpd_tpu_torch.ops import flow as tflow
 from vpd_tpu_torch.ops import preprocess as pre
@@ -295,8 +303,7 @@ from vpd_tpu_torch.train import proposal as tprop
 from vpd_tpu_torch.train import vipe as tvipe
 from vpd_tpu_torch.train import vipe_loop as tvloop
 from vpd_tpu_torch.train.fused_sweep import FusedSweepTrainer
-from vpd_tpu_torch.train.vpd import (apply_train_update, cache_gather,
-                                     create_state,
+from vpd_tpu_torch.train.vpd import (apply_train_update, create_state,
                                      forward_backward,
                                      make_cached_train_step,
                                      make_train_step, optimizer_step)
@@ -316,6 +323,9 @@ TF32_FLOPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 TOL = 0.02                 # bf16 rounding of values in [-4.2, 4.4]
 B1_MAX_DIFF_5CH = 0.002    # share of B1's 5-channel outputs one ulp off
 B1_REPS = 20               # B1 launches a timing sample
+AUG_REPS = 5               # input-kernel launches a timing sample
+AUG_BF16_STEPS, AUG_BF16_SHARE = 2, 0.999  # tests/test_torch_augment.py
+AUG_F32_ATOL = 1e-5
 COS_BAR = 0.999
 # B2 against its twin: both take the matmul form of the cost (the kernel
 # in 3xTF32), whose float32 rounding differs in order
@@ -329,7 +339,7 @@ DTW_SAME_ATOL = 1e-5
 DTW_EDGE_LENS = (1, 2, 3, 15, 16, 17, 127, 128, 129, 255, 256, 257, 511,
                  512)
 FS_EMB = 32                # the student's width: (2, 32) rows, orig + flip
-FS_SHOTS, FS_TRIALS = [4, 16, 64], 10
+FS_SHOTS, FS_TRIALS = [4, 16, 64], 5
 FS_HITS = [1, 10, 25, 50]
 FS_ACC_BAR = 0.9           # full-data accuracy; chance is 1/6
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
@@ -369,7 +379,7 @@ FLOW_B, FLOW_ITERS = 256, 20
 FLOW_TIMED = 5             # timed batches a model (CUDA events, median)
 FLOW_CPU_PAIRS = 2
 FLOW_CPU_ATOL = 1e-3       # f32 on the card (TF32 off) against the CPU
-FLOW_CLI_PAIRS = 512
+FLOW_CLI_PAIRS = 256
 FLOW_PNG_EQUAL = 0.999     # PNG values equal to the in-process flow's
 # the data-prep chain: two full-width broadcast-like videos, cut from the
 # hours of a real corpus to 300 frames each
@@ -441,12 +451,13 @@ BENCH_PREPROCESS_ROW_KEYS = {'batch', 'stage', 'plain_crops_per_s',
                              'kernel_vs_plain', 'device'}
 BENCH_DEPTH = {  # the depth cuts of the tools' defaults (the time limit)
     'bench_preprocess': [],
-    'bench_extract_e2e': ['--num_crops', '2048'],
+    'bench_extract_e2e': ['--num_crops', '1024'],
     'bench_train_e2e': ['--epochs', '2'],
-    'bench_ensemble_train': ['--rounds', '1', '--epochs', '1'],
+    'bench_ensemble_train': ['--rounds', '1', '--epochs', '1',
+                             '--samples_per_epoch', '500'],
     'bench_pipeline_e2e': ['--shards', '--num_epochs', '1',
-                           '--loc_epochs', '2', '--samples_per_epoch',
-                           '1000', '--num_train_videos', '3',
+                           '--loc_epochs', '1', '--samples_per_epoch',
+                           '500', '--num_train_videos', '3',
                            '--num_test_videos', '1'],
 }
 BENCH_BUSY_MAX = 1.05       # (b) over (c) in bench_extract_e2e
@@ -1040,6 +1051,111 @@ def phase_dtw_kernel():
     return max_abs, max_rel
 
 
+def _bf16_steps(a, b):
+    """Distance in bf16 steps between two bf16 tensors (ordered bits)."""
+    def ordered(x):
+        bits = x.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7fff), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def phase_augment_kernel():
+    """The train step's input kernel (ops/augment, csrc/train_augment.cu)
+    at the train cells' shape: B = TRAIN_B rows of a 2 x TRAIN_B-row cache
+    (128 x 128, rgb, 3-channel flow, 0/255 masks), the step's draws, bf16
+    and float32 out. Held against the plain path (the rows' index_select
+    and `train_augment_batch`) on the card: float32 at max abs
+    AUG_F32_ATOL; bf16 within AUG_BF16_STEPS of the float32 path on
+    AUG_BF16_SHARE of the elements, no farther on the mean than the plain
+    bf16 path. The same bits from the rows and from the gathered batch,
+    and twice; ptxas's resources; the kernel's time beside its bounds
+    (every rgb and output byte once; every byte of the stage) and the
+    plain path's."""
+    mean, std = default_config('fs', EMB)['rgb_mean_std']
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    n, b = 2 * TRAIN_B, TRAIN_B
+    rgb, flow = _crops(gen, n, 3)
+    mask = (torch.rand((n, IMG, IMG), generator=gen, device='cuda')
+            > 0.5).to(torch.uint8) * 255
+    cache = {'rgb': rgb, 'flow': flow, 'mask': mask}
+    rows = torch.randperm(n, generator=gen, device='cuda')[:b].to(
+        torch.int32)
+    checks, timing = [], {}
+    for dt in (torch.bfloat16, torch.float32):
+        draws = aug.sample_train_augment(
+            gen, torch.Generator().manual_seed(SEED), b, IMG, IMG,
+            mask=True, flip=True, noise_dtype=dt)
+
+        def kernel(pixels=cache, idx=rows):
+            return aug_op.train_augment(pixels, draws, mean, std, rows=idx,
+                                        out_size=IMG, dtype=dt)
+
+        def plain(out_dt=dt):
+            g = {k: v.index_select(0, rows) for k, v in cache.items()}
+            return aug.train_augment_batch(
+                g['rgb'], draws, mean, std, flow_u8=g['flow'],
+                mask_u8=g['mask'], out_size=IMG, dtype=out_dt)
+
+        before = aug_op.launches
+        out, again = kernel(), kernel()
+        gathered = kernel({k: v.index_select(0, rows)
+                           for k, v in cache.items()}, None)
+        torch.cuda.synchronize()
+        rec = {'dtype': str(dt).split('.')[-1],
+               'launches': aug_op.launches - before,
+               'deterministic': bool(torch.equal(out, again)),
+               'rows_equal_gathered': bool(torch.equal(out, gathered))}
+        ref32 = plain(torch.float32)
+        rec['max_abs_err_vs_plain_f32'] = (out.float() - ref32).abs().max(
+        ).item()
+        ok = rec['launches'] == 3 and rec['deterministic'] and \
+            rec['rows_equal_gathered']
+        if dt == torch.float32:
+            ok = ok and rec['max_abs_err_vs_plain_f32'] <= AUG_F32_ATOL
+        else:
+            steps = _bf16_steps(out, ref32.to(torch.bfloat16))
+            rec['share_within_steps'] = (steps <= AUG_BF16_STEPS).float(
+            ).mean().item()
+            rec['max_bf16_steps'] = int(steps.max())
+            rec['mean_abs_err'] = (out.float() - ref32).abs().mean().item()
+            rec['plain_bf16_mean_abs_err'] = (plain().float() - ref32).abs(
+            ).mean().item()
+            ok = ok and rec['share_within_steps'] >= AUG_BF16_SHARE and \
+                rec['mean_abs_err'] <= rec['plain_bf16_mean_abs_err']
+        del ref32, gathered, again
+        checks.append(rec)
+        if not ok:
+            raise AssertionError('the input kernel disagrees with the '
+                                 'plain path: {}'.format(rec))
+        timing[rec['dtype']] = (cuda_ms(kernel, reps=AUG_REPS),
+                                cuda_ms(plain, iters=5, warmup=1))
+        del out, draws
+        torch.cuda.empty_cache()
+
+    ptxas = _build.ptxas_resources(_build.ptxas_report(['train_augment.cu']))
+    if len(ptxas) != 6 or any(k['spill_store_bytes'] or k['spill_load_bytes']
+                              or k['stack_bytes'] for k in ptxas):
+        raise AssertionError('an input-kernel build spills: {}'.format(
+            ptxas))
+    least = b * IMG * IMG * 3 + b * IMG * IMG * 5 * 2
+    every = b * IMG * IMG * (3 + 3 + 1 + 3 * 2) + b * IMG * IMG * 5 * 2
+    ms, plain_ms = timing['bfloat16']
+    emit({'phase': 'kernels', 'kernel': 'train_augment', 'checks': checks,
+          'ptxas': ptxas, 'batch': b, 'bf16_ms': ms, 'bf16_plain_ms': plain_ms,
+          'f32_ms': timing['float32'][0],
+          'f32_plain_ms': timing['float32'][1],
+          'least_bytes': least,
+          'least_bound_ms': least / HBM_BYTES_PER_S * 1e3,
+          'every_byte': every,
+          'every_byte_bound_ms': every / HBM_BYTES_PER_S * 1e3,
+          'roofline_pct': 100 * least / HBM_BYTES_PER_S * 1e3 / ms})
+    return {'name': 'train_augment', 'route': 'cuda',
+            'source': 'vpd_tpu_torch/csrc/train_augment.cu',
+            'replaces': None, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': least / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
+            'library_ms': None}
+
+
 def _host_dtw(q, ql, t, tl, sp):
     q, t = q.cpu().double().numpy(), t.cpu().double().numpy()
     ql, tl = ql.tolist(), tl.tolist()
@@ -1499,37 +1615,14 @@ def _train_ring(gen, b=TRAIN_B):
     return ring
 
 
-def _augment_parts(batch, mean_std):
-    """CUDA-event ms of the augmentation's stages on one batch, each timed
-    alone on its own input (so they need not sum to the whole): the uint8
-    -> bf16 cast, colour jitter, normalize + mask noise + flow concat, the
-    flip, the resample."""
-    dt = torch.bfloat16
-    gen = torch.Generator(device='cuda').manual_seed(SEED)
-    draws = aug.sample_train_augment(gen, torch.Generator().manual_seed(SEED),
-                                     len(batch['rgb']), IMG, IMG,
-                                     noise_dtype=dt)
-    draws['flip'] = batch['flip']
-    mean, std = (torch.tensor(v, dtype=dt, device='cuda') for v in mean_std)
-    x01 = batch['rgb'].to(dt) / 255.
-
-    def normalize_noise_flow():
-        x = aug.add_mask_noise(aug.normalize_rgb(x01, mean, std),
-                               batch['mask'], draws['noise'],
-                               draws['apply_noise'])
-        return torch.cat([x, aug.decode_flow(batch['flow'], dt)], dim=-1)
-
-    x5 = normalize_noise_flow()
-    stages = {
-        'cast': lambda: batch['rgb'].to(dt) / 255.,
-        'jitter': lambda: aug.batch_color_jitter(x01, draws),
-        'normalize_noise_flow': normalize_noise_flow,
-        'flip': lambda: aug.flip_samples(x5, draws['flip'], True),
-        'resample': lambda: aug.bilinear_resample(
-            x5, draws['top'], draws['left'], draws['crop_h'],
-            draws['crop_w'], IMG, IMG)}
-    return {name: cuda_ms(fn, iters=5, warmup=1)
-            for name, fn in stages.items()}
+def _one_input_launch_a_step(path):
+    """The input kernel's launches since the count was set to 0 before
+    TRAIN_STEPS timed steps of the `path` train step: one a step."""
+    if aug_op.launches != TRAIN_STEPS:
+        raise AssertionError('the {} step launched the input kernel {} '
+                             'times in {} steps, expected one a step'.format(
+                                 path, aug_op.launches, TRAIN_STEPS))
+    return aug_op.launches
 
 
 def _train_step_on_card(card, arch='resnet34', b=TRAIN_B):
@@ -1554,6 +1647,7 @@ def _train_step_on_card(card, arch='resnet34', b=TRAIN_B):
 
     torch.cuda.reset_peak_memory_stats()
     marks = []
+    aug_op.launches = 0
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
         batch = ring[i % TRAIN_RING]
@@ -1569,6 +1663,7 @@ def _train_step_on_card(card, arch='resnet34', b=TRAIN_B):
         marks.append(ev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = _one_input_launch_a_step('streamed')
     peak = torch.cuda.max_memory_allocated()
     split = {name: statistics.median(ev[k].elapsed_time(ev[k + 1])
                                      for ev in marks)
@@ -1576,7 +1671,6 @@ def _train_step_on_card(card, arch='resnet34', b=TRAIN_B):
                                        'optimizer_ms'))}
     step_ms = statistics.median(ev[0].elapsed_time(ev[3]) for ev in marks)
 
-    augment_parts = _augment_parts(ring[0], cfg['rgb_mean_std'])
     imgs = step.augment(ring[0], seed, 0)
     fwd_flops = _encoder_flops(model.eval(), imgs.permute(0, 3, 1, 2))
     train_flops = 3 * fwd_flops
@@ -1596,7 +1690,7 @@ def _train_step_on_card(card, arch='resnet34', b=TRAIN_B):
             'crops_per_s': b * TRAIN_STEPS / wall,
             'host_ms_per_step': wall / TRAIN_STEPS * 1e3,
             'device_ms_per_step': step_ms, **split,
-            'augment_parts_ms': augment_parts,
+            'input_kernel_launches': launches,
             'peak_memory_GiB': peak / 2 ** 30,
             'fwd_gflop_per_crop': fwd_flops / b / 1e9,
             'fwd_bwd_tflops_per_s': tflops,
@@ -1878,7 +1972,8 @@ def _cached_vs_streamed(model, cfg, cache, samples, shard_dir, crop_dir):
 
 def _cached_step_on_card(cache, samples, shard_dir, crop_dir):
     """The cached step at TRAIN_B: ms per step (CUDA events) and crops/s,
-    the gather alone, and the cached-vs-streamed equality check."""
+    the input kernel's launches, and the cached-vs-streamed equality
+    check."""
     cfg = default_config('fs', EMB, img_dim=IMG, use_flow=True, motion=True,
                          encoder_arch='resnet34')
     torch.manual_seed(SEED)
@@ -1904,6 +1999,7 @@ def _cached_step_on_card(cache, samples, shard_dir, crop_dir):
         step(state, ring[i % TRAIN_RING], SEED + 1, cache.arrays)
     torch.cuda.synchronize()
     marks = []
+    aug_op.launches = 0
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1913,18 +2009,14 @@ def _cached_step_on_card(cache, samples, shard_dir, crop_dir):
         marks.append(ev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = _one_input_launch_a_step('cached')
     if not np.isfinite(float(m['emb_loss_sum'])):
         raise AssertionError('cached step loss is not finite')
     step_ms = statistics.median(a.elapsed_time(b) for a, b in marks)
-    idx = ring[0]['idx']
-    gather_ms = cuda_ms(lambda: cache_gather(cache.arrays, idx,
-                                             ('rgb', 'flow', 'mask')))
-    gather_bytes = 2 * TRAIN_B * (cache.nbytes // len(samples))
     return {'batch': TRAIN_B, 'device_ms_per_step': step_ms,
             'host_ms_per_step': wall / TRAIN_STEPS * 1e3,
             'crops_per_s': TRAIN_B * TRAIN_STEPS / wall,
-            'gather_ms': gather_ms, 'gather_bytes': gather_bytes,
-            'gather_bound_ms': gather_bytes / HBM_BYTES_PER_S * 1e3,
+            'input_kernel_launches': launches,
             'vs_streamed_loss_rel_diff': loss_rel,
             'vs_streamed_param_max_rel_diff': param_rel}
 
@@ -2087,6 +2179,7 @@ def phase_cache(card, train):
     png = _png_input(os.path.join(root, 'png'), rng)
     emit({'phase': 'cache', 'card': card, 'staging': staging,
           'step': step, 'cli': cli, 'c2': c2, 'png': png})
+    return step['input_kernel_launches']
 
 
 def _teacher_flops(model, batch):
@@ -4554,6 +4647,7 @@ def main():
         phase_build()
         preprocess = phase_kernels()
         dtw_abs, dtw_rel = phase_dtw_kernel()
+        train_augment = phase_augment_kernel()
         dtw = {'name': 'dtw', 'route': 'cuda',
                'source': 'vpd_tpu_torch/csrc/dtw.cu',
                'replaces': 'vpd_tpu/ops/pallas/dtw_kernel.py:53',
@@ -4561,7 +4655,7 @@ def main():
                **phase_recognize(card), 'library_ms': None}
         slice_launches = phase_slice(card)
         train = phase_train(card)
-        phase_cache(card, train)
+        cached_launches = phase_cache(card, train)
         phase_teacher(card, train)
         phase_heads(card)
         yuv420_launches = phase_flow(card)
@@ -4582,8 +4676,14 @@ def main():
                'data_parallel_extraction': mesh_launches, **bench_launches}
     preprocess['launches'] = sum(by_path.values())
     preprocess['launches_by_path'] = by_path
+    # the input kernel's launches on the train step's two paths, each
+    # counted from 0 around its timed steps
+    aug_by_path = {'streamed_step': train['step']['input_kernel_launches'],
+                   'cached_step': cached_launches}
+    train_augment['launches'] = sum(aug_by_path.values())
+    train_augment['launches_by_path'] = aug_by_path
     print(card)
-    emit({'kernels': [preprocess, dtw]})
+    emit({'kernels': [preprocess, dtw, train_augment]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -18,9 +18,20 @@ against the f64 host DP at rtol 5e-3 (identical sequences at 1e-5
 absolute). Launch counters, the range checks, the launch's resources
 and ptxas's report (no build of either kernel spills) are tested too.
 
-The student's train step (no hand kernel: augmentation, cuDNN and fused
-AdamW) is held against the CPU float32 path from the same weights and
-draws with TF32 off: augmented images at atol 1e-5, the loss and the BN
+The train step's input stage (`ops/augment`, kernel `csrc/train_augment
+.cu`) is held against its plain twin (the gathered rows through
+`train_augment_batch` on the CPU) on the same draws: in float32 at max abs
+1e-5; in bf16 within 2 bf16 steps of the float32 twin on 99.9% of the
+elements, with a mean abs error from it no larger than the bf16 twin's
+(the bars of `tests/test_torch_augment.py`), in float64 at 1e-12 of the
+float64 twin, at 128 x 128 with 5 and 3 channels, without jitter, with
+per-sample orders, at 16 -> 12 and with a row offset, in each output
+dtype (the noise drawn in it); its output is the same bit for bit from
+cache rows and from the gathered batch, and from run to run.
+
+The student's train step (the input kernel, cuDNN and fused AdamW) is
+held against the CPU float32 path from the same weights and draws with
+TF32 off: augmented images at atol 1e-5, the loss and the BN
 running statistics at rtol 1e-4, parameters within 2.5 x lr (Adam's first
 step is about lr x sign(g), and near-zero gradients may round to another
 sign). The bf16 step keeps float32 master weights, makes no host sync and
@@ -91,6 +102,7 @@ from vpd_tpu_torch.data.crops import CropBatchSource
 from vpd_tpu_torch.data.hbm_cache import CacheIndexSource, DeviceCropCache
 from vpd_tpu_torch.data.shards import ShardReader, write_raw_shards
 from vpd_tpu_torch.ops import _build
+from vpd_tpu_torch.ops import augment as taug_op
 from vpd_tpu_torch.ops import dtw_kernel as tdtw
 from vpd_tpu_torch.ops import preprocess as tpre
 from vpd_tpu_torch.geometry import coco as tcoco
@@ -219,10 +231,12 @@ def test_preprocess_kernel_offset_views(cuda_device, view, s, variant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('source,builds', [('preprocess.cu', 6),
-                                           ('dtw.cu', 12)])
+                                           ('dtw.cu', 12),
+                                           ('train_augment.cu', 6)])
 def test_kernel_builds_do_not_spill(cuda_device, source, builds):
     """ptxas's report (`python -m vpd_tpu_torch.ops._build`): every build
-    of B1 (4 vector, 2 general) and B2 uses no local memory."""
+    of B1 (4 vector, 2 general), B2 and the input kernel (bf16, float32 or
+    float64 output, 3 or 5 channels) uses no local memory."""
     kernels = _build.ptxas_resources(_build.ptxas_report([source]))
     assert len(kernels) == builds, kernels
     for k in kernels:
@@ -236,6 +250,119 @@ def test_preprocess_kernel_rejects_other_output_types(cuda_device):
     with pytest.raises(ValueError, match='bfloat16'):
         tpre.preprocess_orig_and_flip(rgb, None, MEAN, STD,
                                       out_dtype=torch.float32)
+
+
+# --- the train step's input kernel -----------------------------------------
+
+# name: (size, out size, flow, mask, jitter, per-sample order, int32 rows,
+# row offset); rows index a cache of twice the batch
+AUG_CASES = {
+    'main': (128, 128, True, True, True, False, True, 0),
+    'rgb_only': (128, 128, False, False, True, False, False, 0),
+    'no_jitter': (128, 128, True, True, False, False, True, 0),
+    'per_sample': (128, 128, True, True, True, True, True, 0),
+    'smaller_out': (16, 12, True, True, True, False, False, 0),
+    'row_offset': (32, 32, True, True, True, True, True, 1000),
+}
+AUG_B = 8
+
+
+def bf16_steps(a, b):
+    """Distance in bf16 steps between two bf16 tensors (ordered bits)."""
+    def ordered(x):
+        bits = x.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7fff), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _augment_case(case, noise_dtype, seed=0):
+    """(streams, rows, row_offset, draws) on the CPU."""
+    size, _, flow, mask, jitter, per_sample, with_rows, offset = \
+        AUG_CASES[case]
+    rng = np.random.default_rng(seed)
+    n = 2 * AUG_B if with_rows else AUG_B
+    streams = {'rgb': torch.from_numpy(rng.integers(0, 256, (n, size, size,
+                                                             3), np.uint8)),
+               'flow': torch.from_numpy(rng.integers(
+                   0, 256, (n, size, size, 3), np.uint8)) if flow else None,
+               'mask': torch.from_numpy(
+                   ((rng.random((n, size, size)) > 0.5) * 255)
+                   .astype(np.uint8)) if mask else None}
+    rows = torch.from_numpy(rng.permutation(n)[:AUG_B] + offset).to(
+        torch.int32) if with_rows else None
+    gen = torch.Generator().manual_seed(seed + 1)
+    draws = sample_train_augment(gen, torch.Generator().manual_seed(seed),
+                                 AUG_B, size, size, jitter=jitter,
+                                 per_sample_order=per_sample, mask=mask,
+                                 flip=True, noise_dtype=noise_dtype)
+    return streams, rows, offset, draws
+
+
+def _gathered(streams, rows, offset):
+    if rows is None:
+        return streams
+    idx = rows.long() - offset
+    return {k: None if v is None else v[idx] for k, v in streams.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize('case', sorted(AUG_CASES))
+def test_train_augment_kernel_matches_twin(cuda_device, case, dtype):
+    """The kernel against the CPU twin on the same rows and draws: float32
+    at max abs 1e-5 (float64, computed in float64, at 1e-12); bf16 within 2
+    bf16 steps of the float32 twin on 99.9% of the elements and no farther
+    from it on the mean than the bf16 twin. The same inputs give the same
+    bits twice, and from the cache's rows as from the gathered batch."""
+    _, out_size, _, _, jitter, _, _, _ = AUG_CASES[case]
+    streams, rows, offset, draws = _augment_case(case, dtype)
+    mean, std = default_config('fs', 8)['rgb_mean_std']
+    gpu = {k: None if v is None else v.to(cuda_device)
+           for k, v in streams.items()}
+    gdraws = {k: v.to(cuda_device) if torch.is_tensor(v) else v
+              for k, v in draws.items()}
+    grows = None if rows is None else rows.to(cuda_device)
+    kw = dict(row_offset=offset, out_size=out_size, jitter=jitter,
+              dtype=dtype)
+    before = taug_op.launches
+    out = taug_op.train_augment(gpu, gdraws, mean, std, rows=grows, **kw)
+    again = taug_op.train_augment(gpu, gdraws, mean, std, rows=grows, **kw)
+    torch.cuda.synchronize()
+    assert taug_op.launches == before + 2
+    assert out.dtype == dtype and out.shape == (
+        AUG_B, out_size, out_size, 3 if streams['flow'] is None else 5)
+    assert torch.equal(out, again)
+    if rows is not None:
+        gathered = taug_op.train_augment(
+            {k: None if v is None else v.to(cuda_device) for k, v in
+             _gathered(streams, rows, offset).items()}, gdraws, mean, std,
+            **dict(kw, row_offset=0))
+        assert torch.equal(out, gathered)
+
+    src = _gathered(streams, rows, offset)
+
+    def twin(dt):
+        return train_augment_batch(src['rgb'], draws, mean, std,
+                                   flow_u8=src['flow'], mask_u8=src['mask'],
+                                   out_size=out_size, jitter=jitter,
+                                   dtype=dt)
+
+    ref = twin(torch.float32)
+    out = out.cpu()
+    if dtype == torch.float64:
+        err = (out - twin(torch.float64)).abs().max().item()
+        assert err <= 1e-12, err
+    elif dtype == torch.float32:
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-5, err
+    else:
+        steps = bf16_steps(out, ref.to(torch.bfloat16))
+        share = (steps <= 2).float().mean().item()
+        assert share >= 0.999, (share, steps.max().item())
+        ours = (out.float() - ref).abs().mean().item()
+        theirs = (twin(torch.bfloat16).float() - ref).abs().mean().item()
+        assert ours <= theirs, (ours, theirs)
 
 
 # --- kernel B2: all-pairs DTW ----------------------------------------------
@@ -429,8 +556,11 @@ def test_train_step_matches_cpu(cuda_device):
     try:
         imgs = augment(batch, draws)
         gbatch = {k: v.to(cuda_device) for k, v in batch.items()}
-        gimgs = augment(gbatch, {k: v.to(cuda_device) if torch.is_tensor(v)
-                                 else v for k, v in draws.items()})
+        before = taug_op.launches
+        gimgs = taug_op.train_augment(
+            gbatch, {k: v.to(cuda_device) if torch.is_tensor(v) else v
+                     for k, v in draws.items()}, mean, std, out_size=S)
+        assert taug_op.launches == before + 1
         np.testing.assert_allclose(gimgs.cpu().numpy(), imgs.numpy(),
                                    atol=1e-5)
         cpu_state = tvpd.create_state(cpu_model, lr)
@@ -604,6 +734,36 @@ def test_cached_step_equals_streamed_step_on_card(cuda_device, tmp_path):
     for (name, p), q in zip(model.named_parameters(), twin.parameters()):
         rel = ((p - q).abs().max() / p.abs().max().clamp_min(1e-30)).item()
         assert rel <= 1e-5, (name, rel)
+
+
+@pytest.mark.cuda
+def test_cached_and_streamed_steps_augment_alike_in_one_launch(cuda_device,
+                                                                tmp_path):
+    """The cached step's input (cache rows read in place) and the streamed
+    step's (the gathered batch) are the same bits; each step launches the
+    input kernel once."""
+    cache, streamed, indexed = _cached_and_streamed(cuda_device, tmp_path)
+    cfg, model = _student(cuda_device)
+    mean, std = cfg['rgb_mean_std']
+    augment = tvpd._make_augment(tvpd._Constants(mean, std), S, True, True,
+                                 torch.bfloat16, 'batch')
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in streamed.next_batch().items()}
+    ibatch = {k: torch.from_numpy(v).to(cuda_device)
+              for k, v in indexed.next_batch().items()}
+    a = augment(batch, 5, 0)
+    b = augment({**cache.arrays, 'flip': ibatch['flip']}, 5, 0,
+                rows=ibatch['idx'])
+    assert torch.equal(a, b)
+
+    kw = dict(img_dim=S, use_flow=True, aug_dtype=torch.bfloat16)
+    state = tvpd.create_state(model, 1e-3)
+    before = taug_op.launches
+    tvpd.make_train_step(mean, std, **kw)(state, batch, 5)
+    assert taug_op.launches == before + 1
+    tvpd.make_cached_train_step(mean, std, **kw)(state, ibatch, 5,
+                                                 cache.arrays)
+    assert taug_op.launches == before + 2
 
 
 @pytest.mark.cuda

@@ -45,6 +45,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # ctypes signatures of the exported entry points: restype, argtypes
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _D = ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
     # rgb, flow, flow_c, flip, out, B, H, W, mean x3, inv_std x3, mode,
     # vector, stream -> cudaError_t
@@ -55,6 +56,14 @@ _SIGNATURES = {
     'vpd_dtw_matrix': (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     # L, D, step_pattern, info (int[5]) -> cudaError_t
     'vpd_dtw_kernel_info': (_I, (_I, _I, _I, ctypes.POINTER(_I))),
+    # rgb, flow, flow_c, mask, rows, n_rows, row_offset, fb, fc, fs, fh,
+    # order, order_stride, noise, apply_noise, top, left, crop_h, crop_w,
+    # flip, out, out_dtype, B, H, W, out_size, mean x3, inv_std x3, stream
+    # -> cudaError_t
+    'vpd_train_augment': (_I, (_P, _P, _I, _P, _P, _L, _L,
+                               _P, _P, _P, _P, _P, _I, _P, _P,
+                               _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _D, _D, _D, _D, _D, _D, _P)),
 }
 
 

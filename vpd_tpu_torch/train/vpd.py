@@ -7,12 +7,14 @@ sum of squared errors against the teacher's embedding; AdamW updates
 every parameter.
 
 One train step on the card: the uint8 batch is augmented on the device
-(`data/augment.py`), the student runs forward and backward with float32
-master parameters and bf16 compute (`models/resnet.py`), and AdamW steps.
-The step reads nothing back from the device: its metrics stay there
-until the epoch ends (`core/metrics.fetch_metrics`). The cached steps
-take index batches and gather the pixel rows from the device crop cache
-(`data/hbm_cache.py`) first, then run the same body. Under a profiler a
+(`ops/augment.train_augment`: one CUDA kernel on the card, the plain
+`data/augment.py` chain on the CPU), the student runs forward and
+backward with float32 master parameters and bf16 compute
+(`models/resnet.py`), and AdamW steps. The step reads nothing back from
+the device: its metrics stay there until the epoch ends
+(`core/metrics.fetch_metrics`). The cached steps take index batches and
+augment those rows of the device crop cache (`data/hbm_cache.py`), the
+kernel reading them in place, then run the same body. Under a profiler a
 step's stages are spans (`core/profiling.span`) with the step's id
 `step`, the optimizer's step count: `vpd.train.input` (the gather and
 the augmentation), `vpd.train.fwd_bwd` (`forward_backward`) and
@@ -46,12 +48,12 @@ from torch import nn
 
 from ..core.mesh import all_reduce_grads, part_rows
 from ..core.profiling import span
-from ..data.augment import (eval_transform_batch, sample_train_augment,
-                            train_augment_batch)
+from ..data.augment import eval_transform_batch, sample_train_augment
 from ..models.fc import FCNet, FlaxDropout, set_dropout_draw
 from ..models.flax_weights import (student_params_from_flax,
                                    student_params_to_flax)
 from ..models.resnet import set_bn_sync
+from ..ops.augment import train_augment
 
 
 class MotionHead(nn.Module):
@@ -244,24 +246,28 @@ def _rows_of(draws, b, part):
 
 def _make_augment(consts, img_dim, use_flow, use_mask, aug_dtype,
                   jitter_order):
-    def augment(batch, seed, step, part=(0, 1)):
+    def augment(batch, seed, step, part=(0, 1), rows=None, row_offset=0):
         """The batch's augmented images, from the draws of `fold_in(seed,
-        step)`. Masks are used when the batch has them and `use_mask`.
-        With `part` (i, k) the batch is rows i of a k-times larger global
-        batch, whose draws are made and sliced."""
+        step)`. `batch` holds the uint8 streams ('rgb'[, 'flow', 'mask'])
+        and the flips: the batch's own rows, or with `rows` ((B,) indices)
+        a crop cache's arrays, of which rows `rows - row_offset` are the
+        batch (`ops/augment.train_augment`). Masks are used when the batch
+        has them and `use_mask`. With `part` (i, k) the batch is rows i of
+        a k-times larger global batch, whose draws are made and sliced."""
         rgb = batch['rgb']
         mask = batch.get('mask') if use_mask else None
         gen, host_gen = consts.generators(rgb.device, fold_in(seed, step))
-        b, h, w = rgb.shape[:3]
+        b = batch['flip'].shape[0]
+        h, w = rgb.shape[1:3]
         draws = _rows_of(sample_train_augment(
             gen, host_gen, b * part[1], h, w,
             per_sample_order=jitter_order == 'per_sample',
             mask=mask is not None, noise_dtype=aug_dtype), b * part[1], part)
         draws['flip'] = batch['flip']
-        return train_augment_batch(
-            rgb, draws, *consts.stats(rgb.device, aug_dtype),
-            flow_u8=batch.get('flow') if use_flow else None, mask_u8=mask,
-            out_size=img_dim, dtype=aug_dtype)
+        return train_augment(
+            {'rgb': rgb, 'flow': batch.get('flow') if use_flow else None,
+             'mask': mask}, draws, consts.mean, consts.std, rows=rows,
+            row_offset=row_offset, out_size=img_dim, dtype=aug_dtype)
 
     return augment
 
@@ -309,22 +315,21 @@ def make_cached_train_step(mean, std, img_dim=128, use_flow=False,
     """Train step over the device crop cache (`data/hbm_cache.py`):
     step(state, batch, seed, cache) -> metrics, where the batch carries
     row indices, targets and flips ({'idx', 'emb', 'flip'}) and `cache` is
-    `DeviceCropCache.arrays`. The rows are gathered on the device, then
-    the step is `make_train_step`'s on the same pixels and draws. Masks are
-    used when `use_mask` (the source's setting, not whether the cache
+    `DeviceCropCache.arrays`. The step is `make_train_step`'s on the same
+    draws and the cache's rows `idx`, which the augmentation reads in
+    place (`ops/augment.train_augment`; gathered first on the CPU). Masks
+    are used when `use_mask` (the source's setting, not whether the cache
     holds masks). `row_offset`: the first global row of a row-sharded
     cache's partition on this rank (`cache_gather`)."""
     consts = _Constants(mean, std)
     augment = _make_augment(consts, img_dim, use_flow, use_mask, aug_dtype,
                             jitter_order)
-    names = ('rgb',) + (('flow',) if use_flow else ()) + (
-        ('mask',) if use_mask else ())
 
     def step(state, batch, seed, cache):
         with span('vpd.train.input', batch['idx'].device, step=state.step):
-            pixels = cache_gather(cache, batch['idx'], names, row_offset)
-            imgs = augment({**pixels, 'flip': batch['flip']}, seed,
-                           state.step, state.part)
+            imgs = augment({**cache, 'flip': batch['flip']}, seed,
+                           state.step, state.part, rows=batch['idx'],
+                           row_offset=row_offset)
         return apply_train_update(
             state, imgs, batch['emb'],
             consts.dropout_draw(imgs.device, seed, state.step, state.part)
