@@ -4,7 +4,11 @@ Everything a cell is made of is found by the names in `BENCHMARK.json`:
 
 * the configuration: the file its `configs` entry names;
 * the traffic mix: `vpdbench/traffic/<traffic>.json`, whose `driver`
-  names the general driver under `vpdbench/drivers/` that runs it;
+  names the general driver under `vpdbench/drivers/` that runs it. A
+  driver module gives `MEASURES`, what its window counts ('train':
+  samples trained; 'infer': samples whose outputs reached host memory),
+  and a `Cell` that sets up, measures, traces, releases, gives the
+  numbers of `correct` and, from `costs()`, what a sample costs;
 * the limits of `correct`: `vpdbench/limits/<workload>.json`, the cell's
   own, {number: limit};
 * each metric: `vpdbench/metrics/<name>.py`, a reader whose `read(r)`
@@ -104,7 +108,7 @@ def run_cell(root, workload, seed, seconds, trace, t_start, device='cuda',
     {...}, 'traffic': {...}}) shrinks a cell for the CPU tests."""
     import torch
 
-    from . import compare, flops
+    from . import compare
 
     spec = Spec(root)
     w = spec.workload(workload)
@@ -130,10 +134,9 @@ def run_cell(root, workload, seed, seconds, trace, t_start, device='cuda',
 
     kind = torch.cuda.get_device_name(0) if cuda else 'cpu'
     readings = {
-        'kind': traffic['driver'], 'setup_s': setup_s, 'window': win,
-        'trace': summary, 'peaks': load_peaks().get(kind),
-        'flops': {'train_per_sample': flops.train_flops_per_sample(config),
-                  'infer_per_sample': flops.infer_flops_per_sample(config)},
+        'kind': traffic['driver'], 'measures': driver.MEASURES,
+        'setup_s': setup_s, 'window': win, 'trace': summary,
+        'peaks': load_peaks().get(kind), 'costs': cell.costs(),
         'traffic': traffic, 'config': config}
     metrics = {}
     for m in spec.metrics(workload, trace):

@@ -6,9 +6,10 @@ process (set-up is long, so the seeds share it):
         [--window 2] [--compute-dtype float32]
 
 For each of `--seeds` the program is set up as the benchmark sets it up
-(its checked steps, or a `--window` of seconds of extraction at the
-cell's load), freed, and compared with the reference: the lower
-readings. For each of `--control-seeds` the reference in float8 e4m3
+(a cell that measures training checks its set-up's first steps; any
+other runs a `--window` of seconds at the cell's load and checks its
+answers), freed, and compared with the reference: the lower readings.
+For each of `--control-seeds` the reference in float8 e4m3
 (`reference/arith.Fp8Arith`) takes the program's place on the same
 feed: the control's readings. Each `--fault` is planted
 (`vpdbench/faults.py`) for `--fault-seeds`. One JSON line a reading,
@@ -65,7 +66,7 @@ def main(argv=None):
         with (faults.planted(kind, fault) if fault
               else contextlib.nullcontext()):
             cell.setup()
-            if kind != 'train':
+            if driver.MEASURES != 'train':
                 cell.window(args.window)
         t1 = time.perf_counter()
         cell.release()

@@ -20,6 +20,10 @@ passed.
 Every embedding read back in the window is kept; after the window the
 reference embeds each pooled chunk once and every answer is compared
 with its chunk's.
+
+The window counts crops whose embeddings reached host memory
+(`MEASURES`); a crop costs the student encoder's forward of both
+variants (`vpdbench/flops.py`).
 """
 
 import contextlib
@@ -28,12 +32,22 @@ import time
 
 import torch
 
-from .. import compare
+from .. import compare, faults, flops
 from ..data import SeededCrops
 from ..reference import student as ref
 from ..reference.arith import Arith
 from ..trace import span, traced
 from ..weights import load, make
+
+MEASURES = 'infer'
+# the CPU tests' cut (`vpdbench/tests/tiny.py`): 32 x 32, chunks of 8,
+# float32
+TINY = {'config': {'img_dim': 32, 'compute_dtype': 'float32'},
+        'traffic': {'chunk': 8, 'pool_chunks': 3, 'segment_chunks': 4,
+                    'warmup_chunks': 2, 'trace_chunks': 3}}
+# what `correct` has to catch underneath the timed path
+FAULTS = {'half_batch': faults.extract_half_batch,
+          'altered': faults.extract_altered}
 
 
 class Cell:
@@ -161,6 +175,9 @@ class Cell:
             self.config, p, s, self.crops.shard('rgb', i),
             self.crops.shard('flow', i), arith)
             for i in range(self.pool_n)]).cpu().numpy()
+
+    def costs(self):
+        return flops.student_costs(self.config)
 
     def numbers(self, control=None):
         """`emb_gap` of every answer of the window (or of the reference

@@ -17,6 +17,9 @@ crosses that point is the last.
 
 After the window the program is freed and the reference follows the
 checked steps from the same weights, rows and draws.
+
+The window counts samples trained (`MEASURES`); a sample costs the
+student's train FLOPs (`vpdbench/flops.py`).
 """
 
 import gc
@@ -24,7 +27,7 @@ import time
 
 import torch
 
-from .. import compare
+from .. import compare, faults, flops
 from ..data import SeededCrops, SeededReader, sample_key, targets
 from ..reference import student as ref
 from ..reference.arith import Arith
@@ -32,6 +35,17 @@ from ..trace import span, traced
 from ..weights import derive, load, make
 
 IMG_DIR = 'crops'
+MEASURES = 'train'
+# the CPU tests' cut (`vpdbench/tests/tiny.py`): 32 x 32, a few crops,
+# batches of 8, float32
+TINY = {'config': {'img_dim': 32, 'compute_dtype': 'float32'},
+        'traffic': {'cache_crops': 48, 'rows_per_shard': 20,
+                    'batch_size': 8, 'epoch_samples': 16,
+                    'trace_epochs': 1}}
+# what `correct` has to catch underneath the timed path
+FAULTS = {'unchanged': faults.train_unchanged,
+          'half_batch': faults.train_half_batch,
+          'altered': faults.train_altered}
 
 
 class _Recorder:
@@ -238,6 +252,9 @@ class Cell:
                                make(stats, self.seed, self.device, 'stats'),
                                self.record['feed'], rows, arith,
                                first_input)
+
+    def costs(self):
+        return flops.student_costs(self.config)
 
     def numbers(self, control=None):
         """The compared numbers: the program's record (or the reference

@@ -1,7 +1,9 @@
 """Faults planted underneath the timed path, to show that `correct` comes
 out false when the program computes something else.
 
-Each fault patches the program for the block of `planted(kind, name)`:
+A driver module names the faults its cells can have in `FAULTS`, {name:
+a function giving (module, attribute, patched value)}; `planted(driver,
+name)` patches the program for its block. The student drivers' faults:
 
 * train `unchanged`: the optimizer step does nothing, so the step
   returns its state unchanged;
@@ -16,15 +18,16 @@ Each fault patches the program for the block of `planted(kind, name)`:
 """
 
 import contextlib
+import importlib
 
 
-def _train_unchanged():
+def train_unchanged():
     from vpd_tpu_torch.train import vpd
 
     return vpd, 'optimizer_step', lambda state: None
 
 
-def _train_half_batch():
+def train_half_batch():
     import torch
 
     from vpd_tpu_torch.train import vpd
@@ -47,7 +50,7 @@ def _train_half_batch():
     return vpd, 'apply_train_update', update
 
 
-def _train_altered():
+def train_altered():
     from vpd_tpu_torch.train import vpd
 
     make = vpd._make_augment
@@ -78,7 +81,7 @@ def _wrap_embed(change):
     return apply_vpd, '_make_kernel_embed', wrapped
 
 
-def _extract_half_batch():
+def extract_half_batch():
     import torch
 
     def change(fn, rgb, flow, i):
@@ -91,7 +94,7 @@ def _extract_half_batch():
     return _wrap_embed(change)
 
 
-def _extract_altered():
+def extract_altered():
     def change(fn, rgb, flow, i):
         out = fn(rgb, flow, i).clone()
         out[0] = out[1]
@@ -100,16 +103,10 @@ def _extract_altered():
     return _wrap_embed(change)
 
 
-FAULTS = {'train': {'unchanged': _train_unchanged,
-                    'half_batch': _train_half_batch,
-                    'altered': _train_altered},
-          'extract': {'half_batch': _extract_half_batch,
-                      'altered': _extract_altered}}
-
-
 @contextlib.contextmanager
-def planted(kind, name):
-    module, attr, value = FAULTS[kind][name]()
+def planted(driver, name):
+    module, attr, value = importlib.import_module(
+        'vpdbench.drivers.' + driver).FAULTS[name]()
     saved = getattr(module, attr)
     setattr(module, attr, value)
     try:

@@ -41,6 +41,14 @@ def infer_flops_per_sample(config):
     return 2 * forward_flops(config, with_motion=False)
 
 
+def student_costs(config):
+    """What a sample of a student cell costs, as the student drivers'
+    `Cell.costs` give it to the readers: the FLOPs of a trained sample
+    and of an extracted crop."""
+    return {'train_per_sample': train_flops_per_sample(config),
+            'infer_per_sample': infer_flops_per_sample(config)}
+
+
 def b1_bytes(batch, img_dim, flow_channels, pair=True, out_channels=5):
     """Bytes B1 must move for one launch: (B, S, S, 3) rgb and (B, S, S,
     flow_channels) flow in, (2B or B, S, S, out_channels) bf16 out."""

@@ -14,9 +14,9 @@ import sys
 import pytest
 import torch
 
-from vpdbench import bench, faults
+from vpdbench import bench, compare, faults
 from vpdbench.reference.arith import Fp8Arith
-from vpdbench.tests.tiny import REPO, SEED, run, tiny
+from vpdbench.tests.tiny import REPO, SEED, checked, driver, run
 
 torch.set_num_threads(2)
 
@@ -43,8 +43,8 @@ def test_a_run_prints_a_well_formed_line(workload, trace):
     # those metrics are left out, the rest are there
     got = set(line['metrics'])
     assert got <= wanted
-    assert ({'setup_s'} if not trace else {'idle_pct.' + (
-        'train' if 'train' in workload else 'infer')}) <= got
+    assert ({'setup_s'} if not trace else {
+        'idle_pct.' + driver(workload).MEASURES} & wanted) <= got
     for m in line['metrics'].values():
         assert set(m) == {'value', 'unit'}
     assert line['device']['platform'] == 'cpu'
@@ -57,31 +57,66 @@ def test_a_run_prints_a_well_formed_line(workload, trace):
 def test_the_reference_computes_the_program_s_function(workload):
     """In float32 the first step's loss and gradient, and every embedding,
     agree with the reference to float32 rounding (a BatchNorm leaf's
-    gradient, a sum that cancels, to some 1e-3 of the median leaf)."""
-    from vpdbench.drivers import extract, train
-
-    spec = bench.Spec(REPO)
-    w = spec.workload(workload)
-    over = tiny(workload)
-    cfg = dict(spec.config(w['config']), **over['config'])
-    mix = dict(spec.traffic(w['traffic']), **over['traffic'])
-    driver = train if mix['driver'] == 'train' else extract
-    cell = driver.Cell(cfg, mix, SEED, 'cpu')
-    cell.setup()
-    if mix['driver'] == 'extract':
-        cell.window(0.1)
-    cell.release()
-    n = cell.numbers()
-    if mix['driver'] == 'train':
+    gradient, a sum that cancels, to some 1e-3 of the median leaf); a
+    driver's numbers without a tighter rule here are held to the cell's
+    limits."""
+    n = checked(workload).numbers()
+    if kind(workload) == 'train':
         assert n['loss1_gap'] < 1e-5 and n['loss_stage_gap'] < 1e-5
         assert n['fwd_gap_median'] < 1e-4 and n['pred_gap_median'] < 1e-4
         assert n['grad_gap_median'] < 1e-4
         assert n['grad_gap'] < 1e-2
-    else:
+    elif kind(workload) == 'extract':
         assert n['emb_gap'] < 1e-4
+    else:
+        assert compare.judge(n, bench.Spec(REPO).limits(workload))[0], n
 
 
-FAULTS = [(w, f) for w in CELLS for f in faults.FAULTS[kind(w)]]
+# the metrics each student cell reports at its CPU cut, where the table
+# of peaks has no entry and the spans carry no device time
+READ_BEFORE = {
+    'r34-train-cache': ({'setup_s', 'train_samples_per_s'},
+                        {'idle_pct.train', 'sampler_host_ms.train',
+                         'sampler_ms.train'}),
+    'r34-extract-pinned': ({'infer_samples_per_s', 'setup_s'},
+                           {'idle_pct.infer'}),
+    'b0-train-cache': ({'setup_s', 'train_samples_per_s'},
+                       {'idle_pct.train', 'sampler_host_ms.train',
+                        'sampler_ms.train'}),
+}
+
+
+@pytest.mark.parametrize('workload', sorted(READ_BEFORE))
+def test_the_student_cells_read_as_before(workload, monkeypatch):
+    """The student drivers' costs are the counts of `vpdbench/flops.py`
+    for the cell's configuration, at its own size and at its cut, and
+    plain and traced runs report the metrics they did."""
+    from vpdbench import flops
+
+    spec = bench.Spec(REPO)
+    w = spec.workload(workload)
+    cfg, mix = spec.config(w['config']), spec.traffic(w['traffic'])
+    counts = {'train_per_sample': flops.train_flops_per_sample(cfg),
+              'infer_per_sample': flops.infer_flops_per_sample(cfg)}
+    assert driver(workload).Cell(cfg, mix, SEED, 'cpu').costs() == counts
+    seen = []
+    reader = bench.Spec.reader
+
+    def keeping(self, name):
+        read = reader(self, name)
+        return lambda r: seen.append(r) or read(r)
+
+    monkeypatch.setattr(bench.Spec, 'reader', keeping)
+    for trace, names in enumerate(READ_BEFORE[workload]):
+        assert set(run(workload, trace=bool(trace))['metrics']) == names
+        r = seen[-1]
+        assert r['kind'] == kind(workload)
+        assert r['costs'] == {
+            'train_per_sample': flops.train_flops_per_sample(r['config']),
+            'infer_per_sample': flops.infer_flops_per_sample(r['config'])}
+
+
+FAULTS = [(w, f) for w in CELLS for f in driver(w).FAULTS]
 
 
 @pytest.mark.parametrize('workload,fault', FAULTS)
@@ -95,22 +130,8 @@ def test_a_fault_underneath_makes_correct_false(workload, fault):
 def test_the_control_fails(workload):
     """The reference in float8 e4m3 products in the program's place fails
     one of the cell's limits."""
-    from vpdbench import compare
-    from vpdbench.drivers import extract, train
-
-    spec = bench.Spec(REPO)
-    w = spec.workload(workload)
-    over = tiny(workload)
-    cfg = dict(spec.config(w['config']), **over['config'])
-    mix = dict(spec.traffic(w['traffic']), **over['traffic'])
-    driver = train if mix['driver'] == 'train' else extract
-    cell = driver.Cell(cfg, mix, SEED, 'cpu')
-    cell.setup()
-    if mix['driver'] == 'extract':
-        cell.window(0.1)
-    cell.release()
-    ok, checks = compare.judge(cell.numbers(Fp8Arith()),
-                               spec.limits(workload))
+    ok, checks = compare.judge(checked(workload).numbers(Fp8Arith()),
+                               bench.Spec(REPO).limits(workload))
     assert not ok, checks
 
 
@@ -130,7 +151,6 @@ def test_the_control_fails_on_the_card_at_the_cell_size():
     passes, the float8 control does not."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
-    from vpdbench import compare
     from vpdbench.drivers import extract
 
     spec = bench.Spec(REPO)

@@ -3,7 +3,10 @@
 import json
 import os
 import re
+import subprocess
+import sys
 
+import pytest
 import torch
 
 from vpdbench import bench
@@ -100,3 +103,122 @@ def test_a_cell_added_as_files_only_runs(tmp_path):
     assert 'sampler_ms.train' in result['metrics']
     plain = run('r18-train-small', root=root)
     assert set(plain['metrics']) == {'train_samples_per_s', 'setup_s'}
+
+
+_STUB_DRIVER = '''"""A driver the harness has never seen: a seeded matrix
+product whose window counts {measures} samples, checked against float64.
+"""
+
+import time
+
+import torch
+
+from vpdbench.trace import traced
+
+MEASURES = {measures!r}
+TINY = {{'config': {{}}, 'traffic': {{'batch': 8}}}}
+FAULTS = {{}}
+
+
+class Cell:
+
+    def __init__(self, config, traffic, seed, device):
+        self.width, self.batch = config['width'], traffic['batch']
+        self.seed, self.device = seed, device
+
+    def setup(self):
+        g = torch.Generator(self.device).manual_seed(self.seed)
+        self.w, self.x = (torch.randn(n, self.width, generator=g,
+                                      device=self.device)
+                          for n in (self.width, self.batch))
+        self.out = self.x @ self.w
+        self.setup_parts = {{}}
+
+    def window(self, seconds, timed=False):
+        t0, n = time.perf_counter(), 0
+        while True:
+            self.out = self.x @ self.w
+            n += self.batch
+            if time.perf_counter() - t0 >= seconds:
+                break
+        return {{'seconds': time.perf_counter() - t0, 'samples': n,
+                'attempted': n, 'failed': 0}}
+
+    def trace(self):
+        return traced(lambda: self.x @ self.w)[1]
+
+    def release(self):
+        pass
+
+    def costs(self):
+        return {{'train_per_sample': 6 * self.width ** 2,
+                'infer_per_sample': 2 * self.width ** 2}}
+
+    def numbers(self, control=None):
+        ref = self.x.double() @ self.w.double()
+        return {{'out_gap': float((self.out - ref).norm() / ref.norm())}}
+'''
+
+_STUB_RUN = r'''
+import json, sys
+from vpdbench.tests.tiny import run
+out = {{'plain': run({cell!r}), 'traced': run({cell!r}, trace=True)}}
+out['loaded'] = sorted(m for m in sys.modules if m in (
+    'vpdbench.flops', 'vpdbench.reference.student'))
+print(json.dumps(out))
+'''
+
+
+@pytest.mark.parametrize('measures', ['train', 'infer'])
+def test_a_cell_of_a_new_driver_added_as_files_only_runs(tmp_path,
+                                                         measures):
+    """A checkout with a new driver module, a configuration with none of
+    the student's keys, a mix, a per-layer metric and limits, each a new
+    file, and the cell as new entries: the harness runs it unchanged,
+    takes its cut and its costs from the driver, reports the throughput
+    of what its window counts, and loads neither the student's reference
+    nor its FLOP counts."""
+    root = str(tmp_path)
+    b = copy_benchmark(root)
+    cell, name = 'stub-' + measures, 'stub_' + measures
+
+    def write(rel, text):
+        with open(os.path.join(root, 'vpdbench', rel), 'w') as fp:
+            fp.write(text if isinstance(text, str) else json.dumps(text))
+
+    write('drivers/{}.py'.format(name), _STUB_DRIVER.format(
+        measures=measures))
+    write('configs/stub-product.json', {'name': 'stub-product', 'width': 16})
+    write('traffic/{}.json'.format(cell), {'driver': name, 'batch': 1024})
+    write('limits/{}.json'.format(cell), {'out_gap': 1e-6})
+    write('metrics/stub_batch.py',
+          'def read(r):\n    return float(r["traffic"]["batch"])\n')
+    b['configs'].append({'name': 'stub-product', 'source': 'x',
+                         'file': 'vpdbench/configs/stub-product.json',
+                         'reduced': [], 'why': 'a test'})
+    b['workloads'].append({'name': cell, 'config': 'stub-product',
+                           'traffic': cell, 'chips': 1, 'why': 'a test'})
+    throughput = measures + '_samples_per_s'
+    for m in b['end_to_end'] + b['per_layer']:
+        if m['name'] in (throughput, 'idle_pct.' + measures):
+            m['workloads'].append(cell)
+    b['per_layer'].append({'name': 'stub_batch', 'unit': 'n',
+                           'better': 'higher', 'source': 'host_clock',
+                           'layer': 'device', 'moves': throughput,
+                           'workloads': [cell]})
+    with open(os.path.join(root, 'BENCHMARK.json'), 'w') as fp:
+        json.dump(b, fp)
+    proc = subprocess.run([sys.executable, '-c', _STUB_RUN.format(cell=cell)],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ,
+                                                OMP_NUM_THREADS='2'))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    plain, traced = out['plain'], out['traced']
+    assert plain['correct'] and traced['correct'], traced['checks']
+    assert set(plain['metrics']) == {'setup_s', throughput}
+    assert plain['metrics'][throughput]['value'] > 0
+    # the driver's cut: batches of 8, not the mix's 1,024
+    assert traced['metrics']['stub_batch']['value'] == 8
+    assert 'idle_pct.' + measures in traced['metrics']
+    assert out['loaded'] == []

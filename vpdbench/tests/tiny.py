@@ -1,11 +1,14 @@
 """Cells cut to a size the CPU runs in seconds, for the benchmark's tests.
 
-`TINY[driver]` shrinks a cell through `bench.run_cell`'s `overrides`:
-ResNet-18 (or b0 as it is) at 32 x 32, a few crops, batches of 8. The
-program computes in float32 here, where the reference must agree with
-it to rounding; the timed bf16 path is checked on the card.
+Each driver module gives its cut in `TINY` ({'config': {...}, 'traffic':
+{...}}), which `tiny` hands to `bench.run_cell` as its `overrides`; the
+student drivers' cut: 32 x 32, a few crops, batches of 8, and ResNets
+cut to ResNet-18 (b0 as it is). The program computes in float32 here,
+where the reference must agree with it to rounding; the timed bf16 path
+is checked on the card.
 """
 
+import importlib
 import json
 import os
 import shutil
@@ -17,26 +20,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SEED = 2 ** 31 + 977
 
-TINY = {
-    'train': {'config': {'img_dim': 32, 'compute_dtype': 'float32'},
-              'traffic': {'cache_crops': 48, 'rows_per_shard': 20,
-                          'batch_size': 8, 'epoch_samples': 16,
-                          'trace_epochs': 1}},
-    'extract': {'config': {'img_dim': 32, 'compute_dtype': 'float32'},
-                'traffic': {'chunk': 8, 'pool_chunks': 3,
-                            'segment_chunks': 4, 'warmup_chunks': 2,
-                            'trace_chunks': 3}},
-}
+
+def driver(workload, root=REPO):
+    """The driver module that runs `workload`."""
+    spec = bench.Spec(root)
+    name = spec.traffic(spec.workload(workload)['traffic'])['driver']
+    return importlib.import_module('vpdbench.drivers.' + name)
 
 
 def tiny(workload, root=REPO, **config):
     """The overrides of `workload`'s driver, ResNets cut to ResNet-18."""
     spec = bench.Spec(root)
-    w = spec.workload(workload)
-    kind = spec.traffic(w['traffic'])['driver']
-    cfg = spec.config(w['config'])
-    over = {k: dict(v) for k, v in TINY[kind].items()}
-    if cfg['reference'] == 'resnet':
+    cfg = spec.config(spec.workload(workload)['config'])
+    over = {k: dict(v) for k, v in driver(workload, root).TINY.items()}
+    if cfg.get('reference') == 'resnet':
         over['config']['encoder_arch'] = 'resnet18'
     over['config'].update(config)
     return over
@@ -48,11 +45,30 @@ def run(workload, trace=False, root=REPO, seed=SEED, **config):
                           overrides=tiny(workload, root, **config))
 
 
+def checked(workload, seed=SEED):
+    """`workload`'s cell, cut, on the CPU: set up, a short window where its
+    answers are checked (any cell that does not measure training),
+    released, ready to give its numbers."""
+    spec = bench.Spec(REPO)
+    w = spec.workload(workload)
+    over = tiny(workload)
+    module = driver(workload)
+    cell = module.Cell(dict(spec.config(w['config']), **over['config']),
+                       dict(spec.traffic(w['traffic']), **over['traffic']),
+                       seed, 'cpu')
+    cell.setup()
+    if module.MEASURES != 'train':
+        cell.window(0.1)
+    cell.release()
+    return cell
+
+
 def copy_benchmark(dst):
-    """BENCHMARK.json and vpdbench's data files under `dst`."""
+    """BENCHMARK.json and the benchmark's files under `dst`, as a checkout
+    holds them."""
     shutil.copy(os.path.join(REPO, 'BENCHMARK.json'), dst)
-    for sub in ('configs', 'traffic', 'metrics', 'limits'):
-        shutil.copytree(os.path.join(REPO, 'vpdbench', sub),
-                        os.path.join(dst, 'vpdbench', sub))
+    shutil.copytree(os.path.join(REPO, 'vpdbench'),
+                    os.path.join(dst, 'vpdbench'),
+                    ignore=shutil.ignore_patterns('__pycache__', '.cache'))
     with open(os.path.join(dst, 'BENCHMARK.json')) as fp:
         return json.load(fp)
