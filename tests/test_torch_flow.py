@@ -14,8 +14,9 @@ CPU.
 - The CLI with `--model lk` under raw, yuv420 and y8 on the same tree as
   vpd_tpu's CLI: every PNG value within one quantization step of
   vpd_tpu's and equal on at least 99.9% (a last-bit difference in the
-  float flow can move a truncated value one step); flags equal
-  vpd_tpu's plus `--device`; guards.
+  float flow can move a truncated value one step); with `--model raft`
+  the PNGs byte-equal to the in-process quantized RAFT's payloads; flags
+  equal vpd_tpu's plus `--device`; guards.
 """
 
 import os
@@ -209,6 +210,32 @@ def test_cli_lk_pngs_match_vpd_tpu(pair_tree, codec, median):
     assert (a == b).mean() >= 0.999, (a == b).mean()
     # a second run skips the written pairs
     assert tcli.main(pair_tree, 't' + name, device='cpu', **kw) == 0
+
+
+def test_cli_raft_pngs_are_the_card_half_s_payloads(tmp_path):
+    """`compute_flow --model raft --raft_iters 2` (random init, bf16
+    convolutions by `--mixed_precision`'s default) writes, for each pair
+    of a 64 x 64 tree, the payload of the in-process
+    `make_quantized_flow_fn(raft_flow_fn(...))` on the decoded frames,
+    byte for byte, beside the constant third channel."""
+    from vpd_tpu_torch.data.crops import decode_crop_batch
+    from vpd_tpu_torch.models.raft import build_raft, raft_flow_fn
+
+    root = str(tmp_path)
+    write_pair_tree(root, size=64)
+    assert tcli.main(root, 'raft', clip=20, img_dim=64, batch_size=8,
+                     overwrite=False, model='raft', raft_iters=2,
+                     device='cpu') == 6
+    got = read_outputs(root, 'raft')
+    prefixes = list(got)
+    frames = [torch.from_numpy(decode_crop_batch(
+        [p + suffix for p in prefixes], 64)[0])
+        for suffix in ('.prev.png', '.png')]
+    want = tflow.make_quantized_flow_fn(raft_flow_fn(
+        build_raft(), iters=2, dtype=torch.bfloat16), clip=20)(*frames)
+    png = np.stack([got[p] for p in prefixes])
+    assert png.shape == (6, 64, 64, 3) and (png[..., 2] == 128).all()
+    assert np.array_equal(png[..., :2], want.numpy())
 
 
 def test_cli_flags_match_vpd_tpu():

@@ -24,6 +24,11 @@ is.
 * `dtype=torch.bfloat16` runs every convolution in bf16 over float32
   parameters; the correlation, the lookup, the flow updates and the
   upsampling stay float32.
+* Under a torch profiler the forward opens the spans
+  (`core/profiling.span`) `vpd.flow.encode` (the input, fnet on both
+  frames, cnet), `vpd.flow.corr` (the pyramid), `vpd.flow.lookup` and
+  `vpd.flow.update` in each iteration (ids: `iter`) and
+  `vpd.flow.upsample`; off the profiler each is one check.
 
 InstanceNorm is affine-free with the biased variance (eps 1e-5); the
 basic context encoder's BatchNorm has flax's train-mode semantics
@@ -35,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.profiling import span
 from ..ops.flow import div255
 from .resnet import FlaxBatchNorm2d
 
@@ -432,16 +438,18 @@ class RAFT(nn.Module):
                 'InputPadder); got {}'.format(tuple(image1.shape)))
         dt = torch.float32 if dtype is None else dtype
         b = image1.shape[0]
+        dev = image1.device
 
         def prep(img):  # NHWC 0-255 -> NCHW (channels_last) in [-1, 1]
             return (2. * div255(img) - 1.).permute(0, 3, 1, 2).to(dt)
 
-        im1, im2 = prep(image1), prep(image2)
-        fmaps = self.fnet(torch.cat([im1, im2]))  # per-sample norms only
-        fmap1, fmap2 = fmaps[:b], fmaps[b:]
-        cnet = self.cnet(im1)
-        net = torch.tanh(cnet[:, :self.hidden_dim])
-        inp = F.relu(cnet[:, self.hidden_dim:])
+        with span('vpd.flow.encode', dev):
+            im1, im2 = prep(image1), prep(image2)
+            fmaps = self.fnet(torch.cat([im1, im2]))  # per-sample norms
+            fmap1, fmap2 = fmaps[:b], fmaps[b:]
+            cnet = self.cnet(im1)
+            net = torch.tanh(cnet[:, :self.hidden_dim])
+            inp = F.relu(cnet[:, self.hidden_dim:])
 
         h, w = fmap1.shape[2], fmap1.shape[3]
         min_dim = 2 ** (self.corr_levels - 1)
@@ -450,25 +458,30 @@ class RAFT(nn.Module):
                 'images too small for a {}-level correlation pyramid: '
                 '1/8-res grid is {}x{}, need >= {}'.format(
                     self.corr_levels, h, w, min_dim))
-        pyramid = corr_pyramid(fmap1.permute(0, 2, 3, 1),
-                               fmap2.permute(0, 2, 3, 1), self.corr_levels)
-        coords0 = coords_grid(b, h, w, device=image1.device)
+        with span('vpd.flow.corr', dev):
+            pyramid = corr_pyramid(fmap1.permute(0, 2, 3, 1),
+                                   fmap2.permute(0, 2, 3, 1),
+                                   self.corr_levels)
+        coords0 = coords_grid(b, h, w, device=dev)
         coords1 = coords0
 
         def up(flow, mask):
-            if mask is None:
-                return upsample_flow_bilinear8(flow)
-            return upsample_flow_convex(flow, mask.permute(0, 2, 3, 1))
+            with span('vpd.flow.upsample', dev):
+                if mask is None:
+                    return upsample_flow_bilinear8(flow)
+                return upsample_flow_convex(flow, mask.permute(0, 2, 3, 1))
 
         predictions = []
-        for _ in range(iters):
+        for i in range(iters):
             coords1 = coords1.detach()
-            corr = corr_lookup(pyramid, coords1, self.corr_radius)
-            flow = coords1 - coords0
-            net, mask, delta = self.update_block(
-                net, inp, corr.permute(0, 3, 1, 2).to(dt),
-                flow.permute(0, 3, 1, 2).to(dt))
-            coords1 = coords1 + delta.permute(0, 2, 3, 1)
+            with span('vpd.flow.lookup', dev, iter=i):
+                corr = corr_lookup(pyramid, coords1, self.corr_radius)
+            with span('vpd.flow.update', dev, iter=i):
+                flow = coords1 - coords0
+                net, mask, delta = self.update_block(
+                    net, inp, corr.permute(0, 3, 1, 2).to(dt),
+                    flow.permute(0, 3, 1, 2).to(dt))
+                coords1 = coords1 + delta.permute(0, 2, 3, 1)
             if train:
                 predictions.append(up(coords1 - coords0, mask))
         if train:
@@ -527,7 +540,8 @@ def build_raft(state_dict=None, small=False, seed=0):
 def raft_flow_fn(model, iters=20, dtype=None):
     """(prev_u8, curr_u8) -> (B, H, W, 2) float32 flow on the inputs'
     device, `raft/flow.py` parity (eval mode, no autograd). `dtype` is the
-    convolutions' compute type (bf16 for `--mixed_precision`)."""
+    convolutions' compute type (bf16 for `--mixed_precision`). The
+    function's `model` is the module it runs."""
     model.eval()
 
     @torch.inference_mode()
@@ -535,4 +549,5 @@ def raft_flow_fn(model, iters=20, dtype=None):
         return model(prev_u8, curr_u8, iters=iters, train=False,
                      dtype=dtype)
 
+    fn.model = model
     return fn

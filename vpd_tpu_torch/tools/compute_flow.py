@@ -41,6 +41,7 @@ from .. import resolve_device
 from ..core.mesh import (barrier, broadcast_object, distributed,
                          refuse_devices_without_torchrun)
 from ..core.pipeline import run_pipelined
+from ..core.profiling import span
 from ..data.crops import decode_crop_batch
 from ..data.upload_codec import (FLOW_CODECS, decode_yuv420, encode_luma,
                                  encode_yuv420, packed_nbytes, packer_calls)
@@ -107,6 +108,40 @@ def build_flow_fn(model, raft_weights=None, raft_iters=20, small=False,
     net = build_raft(sd, small=small).to(resolve_device(device))
     return raft_flow_fn(net, iters=raft_iters,
                         dtype=torch.bfloat16 if mixed_precision else None)
+
+
+def make_flow_compute(qfn, device):
+    """The card's half of a chunk: `compute(frames)` takes the
+    (prev, curr) uint8 host frames (pinned on the card) and returns
+    (uint8 payloads as a host array, the event after which they are
+    there, or None on the CPU). The frames upload on a side stream, which
+    the compute stream waits for; `qfn` (`make_quantized_flow_fn`) runs
+    on the compute stream, and the payloads come back into fresh pinned
+    memory behind it. Under a profiler the whole is the span
+    `vpd.flow.chunk`."""
+    device = torch.device(device)
+    on_cuda = device.type == 'cuda'
+    copy_stream = torch.cuda.Stream(device) if on_cuda else None
+
+    def compute(frames):
+        # runs sequentially on the calling thread (run_pipelined)
+        with span('vpd.flow.chunk', device):
+            if not on_cuda:
+                return qfn(*frames).numpy(), None
+            compute_stream = torch.cuda.current_stream(device)
+            with torch.cuda.stream(copy_stream):
+                frames = [f.to(device, non_blocking=True) for f in frames]
+            compute_stream.wait_stream(copy_stream)
+            for f in frames:
+                f.record_stream(compute_stream)
+            q = qfn(*frames)
+            host = torch.empty(q.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(q, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(compute_stream)
+            return host.numpy(), done
+
+    return compute
 
 
 def get_pairs(crop_dir, out_suffix, overwrite):
@@ -209,7 +244,7 @@ def _run(path, out_name, clip, img_dim, batch_size, overwrite,
     import cv2
     png_compression = [cv2.IMWRITE_PNG_COMPRESSION, 9]
     on_cuda = device.type == 'cuda'
-    copy_stream = torch.cuda.Stream(device) if on_cuda else None
+    compute = make_flow_compute(qfn, device)
 
     def decode_chunk(chunk):
         # fresh pinned buffers a chunk: none is rewritten while its async
@@ -223,23 +258,6 @@ def _run(path, out_name, clip, img_dim, batch_size, overwrite,
             np.copyto(out.numpy(), rgb if encode is None else encode(rgb))
             frames.append(out)
         return frames
-
-    def compute(frames):
-        # runs sequentially on the calling thread (run_pipelined)
-        if not on_cuda:
-            return qfn(*frames).numpy(), None
-        compute_stream = torch.cuda.current_stream(device)
-        with torch.cuda.stream(copy_stream):
-            frames = [f.to(device, non_blocking=True) for f in frames]
-        compute_stream.wait_stream(copy_stream)
-        for f in frames:
-            f.record_stream(compute_stream)
-        q = qfn(*frames)
-        host = torch.empty(q.shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(q, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(compute_stream)
-        return host.numpy(), done
 
     def write_chunk(chunk, result):
         q, done = result  # (n, H, W, 2) uint8

@@ -1,0 +1,12 @@
+"""flow_update_ms.infer: device milliseconds a chunk spends in RAFT's
+update block (motion encoder, separable ConvGRU, flow and mask heads,
+the coordinates' step): the kernels launched inside its `iters` spans
+`vpd.flow.update` (`models/raft.RAFT.forward`); the mean over the traced
+chunks, read only where each chunk holds all its iterations
+(`vpdbench/flow_spans.py`)."""
+
+from vpdbench.flow_spans import chunk_device_ms
+
+
+def read(r):
+    return chunk_device_ms(r, 'vpd.flow.update')
