@@ -25,7 +25,12 @@ line each; any failure raises and exits non-zero:
              against the plain gather + augmentation on the same draws
              (bf16 and float32), bit-equal from cache rows and from the
              gathered batch and from run to run, ptxas's resources, timed
-             beside its bounds and the plain path
+             beside its bounds and the plain path; RAFT's lookup kernel
+             (ops/corr) against its twin at the flow cell's shapes
+             (radius 4 and 3), a 64-px grid, a 12x20 grid at radius 3, 4
+             and coordinates on cells, edges and off the map, one launch
+             a lookup, ptxas's resources, timed beside its byte bound,
+             the twin and F.grid_sample over the four levels
   recognize  DTW few-shot recognition and retrieval end to end at the
              full fs protocol (the real all.txt, val ids, few-shot split
              files and cached fps; 1446 actions; synthetic (2, 32)
@@ -110,12 +115,14 @@ line each; any failure raises and exits non-zero:
              -m vpd_tpu_torch.tools.detect fs_jump` on a synthetic
              whole-video corpus (`write_detect_corpus`, 3 members, 2
              epochs), its AP table above that of random scores
-  flow       optical flow (no hand kernel: cuDNN convolutions, batched
-             products and plain torch) at compute_flow's defaults: basic
+  flow       optical flow (cuDNN convolutions, batched products, plain
+             torch and the lookup kernel) at compute_flow's defaults: basic
              RAFT at the official widths (random init, seeded) on 128x128
              pairs, batch 256, 20 iterations, bf16. f32 on the card (TF32
              off) against the CPU on 2 pairs (atol 1e-3 after 3
-             iterations; the difference after 20 printed); bf16 against
+             iterations; the difference after 20 printed), one lookup
+             launch an iteration in these forwards and in the three
+             RAFT flow fns; bf16 against
              f32 (endpoint error); pairs/s, peak memory and TFLOP/s of
              RAFT bf16, RAFT f32 (cuDNN's TF32 default), raft-small and
              LK, and RAFT's parts (encoders, correlation pyramid, one
@@ -282,6 +289,7 @@ from vpd_tpu_torch.infer import apply_vipe as av
 from vpd_tpu_torch.infer import apply_vpd as ap
 from vpd_tpu_torch.ops import _build
 from vpd_tpu_torch.ops import augment as aug_op
+from vpd_tpu_torch.ops import corr as corr_op
 from vpd_tpu_torch.ops import dtw_kernel as dtwk
 from vpd_tpu_torch.ops import flow as tflow
 from vpd_tpu_torch.ops import preprocess as pre
@@ -309,6 +317,7 @@ from vpd_tpu_torch.train.vpd import (apply_train_update, create_state,
                                      make_train_step, optimizer_step)
 from vpd_tpu_torch.train.vpd_loop import (build_student, default_config,
                                           save_student)
+from vpdbench.metrics.lookup_roofline import least_bytes as lookup_bytes
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, '.smoke')
@@ -326,6 +335,9 @@ B1_REPS = 20               # B1 launches a timing sample
 AUG_REPS = 5               # input-kernel launches a timing sample
 AUG_BF16_STEPS, AUG_BF16_SHARE = 2, 0.999  # tests/test_torch_augment.py
 AUG_F32_ATOL = 1e-5
+CORR_B = 256               # the flow cell's chunk: 16 x 16 queries a pair
+CORR_RTOL = 1e-6           # the lookup kernel against its twin, a query
+CORR_REPS = 10             # lookup launches a timing sample
 COS_BAR = 0.999
 # B2 against its twin: both take the matmul form of the cost (the kernel
 # in 3xTF32), whose float32 rounding differs in order
@@ -1154,6 +1166,115 @@ def phase_augment_kernel():
             'replaces': None, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': least / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
             'library_ms': None}
+
+
+def _corr_case(gen, b, grid_h, grid_w, spread=12.):
+    """A float32 pyramid of B pairs' random 256-channel features on a
+    grid_h x grid_w grid and coordinates around the grid, up to spread / 2
+    cells off, past every border."""
+    f1, f2 = (torch.randn((b, grid_h, grid_w, 256), generator=gen,
+                          device='cuda') for _ in range(2))
+    coords = traft.coords_grid(b, grid_h, grid_w, device='cuda') + spread * (
+        torch.rand((b, grid_h, grid_w, 2), generator=gen, device='cuda')
+        - 0.5)
+    return traft.corr_pyramid(f1, f2), coords
+
+
+def _corr_gap(out, ref):
+    """The largest relative L2 gap of a query's row (a zero row against a
+    zero row reads 0)."""
+    d = (out - ref).flatten(0, 2).norm(dim=1)
+    return float((d / ref.flatten(0, 2).norm(dim=1).clamp_min(1e-30)).max())
+
+
+def _grid_sample_lookup(pyramid, coords, radius):
+    """`F.grid_sample` over the levels, the library yardstick (the port
+    never calls it): a (N, 1, K, K) sample a level at the taps' normalized
+    positions, x offset on the first axis, then the levels' cat."""
+    n = pyramid[0].shape[0]
+    d = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=coords.device)
+    flat = coords.reshape(n, 2)
+    grids = []
+    for lvl, corr in enumerate(pyramid):
+        hl, wl = corr.shape[1:]
+        x = flat[:, 0, None, None] / 2 ** lvl + d[None, :, None]
+        y = flat[:, 1, None, None] / 2 ** lvl + d[None, None, :]
+        grids.append(torch.stack(
+            torch.broadcast_tensors(2 * x / (wl - 1) - 1,
+                                    2 * y / (hl - 1) - 1), dim=-1))
+
+    def lookup():
+        return torch.cat([torch.nn.functional.grid_sample(
+            corr[:, None], g, align_corners=True).reshape(n, -1)
+            for corr, g in zip(pyramid, grids)], dim=1)
+    return lookup
+
+
+def phase_corr_kernel():
+    """RAFT's lookup kernel (ops/corr, csrc/corr_lookup.cu) against its
+    plain twin on the card, at the flow cell's shapes (B = CORR_B pairs, a
+    16 x 16 grid, radius 4 and 3), on a 64-px input's grid (levels down to
+    1 x 1), on a 12 x 20 grid at radius 3 and 4, and at coordinates on
+    whole cells, on the map's edge and whole windows off it: the largest
+    relative L2 gap of a query at most CORR_RTOL, one launch a lookup.
+    ptxas's resources; the kernel's time beside its byte bound, the
+    twin's and `F.grid_sample`'s over the four levels."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 12)
+    checks = []
+    cases = [('cell', CORR_B, 16, 16, 4), ('cell_small', CORR_B, 16, 16, 3),
+             ('64px', 8, 8, 8, 4)] + [
+        ('12x20_r{}'.format(r), 4, 12, 20, r) for r in (3, 4)]
+    for name, b, gh, gw, r in cases + [('special', 6, 16, 16, 4)]:
+        pyramid, coords = _corr_case(gen, b, gh, gw)
+        if name == 'special':  # on cells, on the edges, windows off the map
+            grid = traft.coords_grid(b, gh, gw, device='cuda')
+            coords = torch.stack([grid, grid + 0.5, grid + 40., grid - 40.,
+                                  grid.clamp(max=0.) + 15., -grid])[
+                torch.arange(b), torch.arange(b)].contiguous()
+        before = corr_op.launches
+        out = corr_op.corr_lookup(pyramid, coords, r)
+        torch.cuda.synchronize()
+        rec = {'case': name, 'b': b, 'grid': [gh, gw], 'radius': r,
+               'launches': corr_op.launches - before,
+               'max_rel_l2_gap': _corr_gap(out, corr_op.corr_lookup_reference(
+                   pyramid, coords, r))}
+        checks.append(rec)
+        if rec['launches'] != 1 or not rec['max_rel_l2_gap'] <= CORR_RTOL:
+            raise AssertionError('the lookup kernel disagrees with its '
+                                 'twin: {}'.format(rec))
+        del pyramid, coords, out
+
+    ptxas = _build.ptxas_resources(_build.ptxas_report(['corr_lookup.cu']))
+    if len(ptxas) != 2 or any(k['spill_store_bytes'] or k['spill_load_bytes']
+                              or k['stack_bytes'] for k in ptxas):
+        raise AssertionError('a lookup-kernel build spills: {}'.format(
+            ptxas))
+
+    pyramid, _ = _corr_case(gen, CORR_B, 16, 16)
+    coords = traft.coords_grid(CORR_B, 16, 16, device='cuda') + \
+        torch.randn((CORR_B, 16, 16, 2), generator=gen, device='cuda')
+    library = _grid_sample_lookup(pyramid, coords, 4)
+    library_gap = _corr_gap(library().reshape(CORR_B, 16, 16, -1),
+                            corr_op.corr_lookup(pyramid, coords, 4))
+    ms = cuda_ms(lambda: corr_op.corr_lookup(pyramid, coords, 4),
+                 reps=CORR_REPS)
+    plain_ms = cuda_ms(lambda: corr_op.corr_lookup_reference(
+        pyramid, coords, 4), iters=5)
+    library_ms = cuda_ms(library, iters=5)
+    n = CORR_B * 16 * 16
+    least = lookup_bytes(CORR_B, 8 * 16, len(pyramid), 4)
+    bound_ms = least / HBM_BYTES_PER_S * 1e3
+    emit({'phase': 'kernels', 'kernel': 'corr_lookup', 'checks': checks,
+          'ptxas': ptxas, 'queries': n, 'ms': ms, 'plain_ms': plain_ms,
+          'grid_sample_ms': library_ms,
+          'grid_sample_max_rel_l2_gap': library_gap, 'least_bytes': least,
+          'bound_ms': bound_ms, 'roofline_pct': 100 * bound_ms / ms})
+    return {'name': 'corr_lookup', 'route': 'cuda',
+            'source': 'vpd_tpu_torch/csrc/corr_lookup.cu',
+            'replaces': None, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': 'bytes',
+            'library_ms': library_ms}
 
 
 def _host_dtw(q, ql, t, tl, sp):
@@ -2921,6 +3042,15 @@ def _raft_parts_ms(model, im1, im2, dt):
     return out
 
 
+def _expect_lookups(before, want, what):
+    """Raise unless the lookup kernel launched `want` times since
+    `before` (`ops.corr.launches`): one launch a RAFT iteration."""
+    got = corr_op.launches - before
+    if got != want:
+        raise AssertionError('{}: {} lookup-kernel launches, want {} (one '
+                             'an iteration)'.format(what, got, want))
+
+
 def _raft_on_card(rng):
     """RAFT at full width: f32 against the CPU, bf16 against f32, the
     timed forwards at batch 256 and their parts, peak memory."""
@@ -2930,15 +3060,18 @@ def _raft_on_card(rng):
     im1, im2 = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     out = {}
 
-    # f32 on the card (TF32 off) against the CPU on a few pairs
+    # f32 on the card (TF32 off) against the CPU on a few pairs, one
+    # lookup-kernel launch an iteration
     cpu_model = traft.build_raft(seed=SEED)
     c1, c2 = (torch.from_numpy(x[:FLOW_CPU_PAIRS]) for x in (a, b))
+    before = corr_op.launches
     with _no_tf32(), torch.inference_mode():
         for iters in (3, FLOW_ITERS):
             ref = cpu_model(c1, c2, iters=iters)
             got = model(c1.cuda(), c2.cuda(), iters=iters).cpu()
             out['f32_vs_cpu_max_abs_{}_iters'.format(iters)] = float(
                 (got - ref).abs().max())
+    _expect_lookups(before, 3 + FLOW_ITERS, 'the f32 forwards')
     if not out['f32_vs_cpu_max_abs_3_iters'] <= FLOW_CPU_ATOL:
         raise AssertionError('RAFT f32 on the card against the CPU: {} '
                              '(bar {})'.format(
@@ -2951,7 +3084,10 @@ def _raft_on_card(rng):
            'raft_small_bf16': traft.raft_flow_fn(small, FLOW_ITERS,
                                                  torch.bfloat16),
            'lk': tflow.lucas_kanade_flow}
+    before = corr_op.launches
     flows = {name: fn(im1, im2) for name, fn in fns.items()}
+    _expect_lookups(before, 3 * FLOW_ITERS, 'the three RAFT flow fns')
+    out['lookup_launches_checked'] = 3 + 4 * FLOW_ITERS
     for name, f in flows.items():
         if f.shape != (FLOW_B, IMG, IMG, 2) or not torch.isfinite(f).all():
             raise AssertionError('{}: bad flow {}'.format(name, f.shape))
@@ -4648,6 +4784,7 @@ def main():
         preprocess = phase_kernels()
         dtw_abs, dtw_rel = phase_dtw_kernel()
         train_augment = phase_augment_kernel()
+        corr = phase_corr_kernel()
         dtw = {'name': 'dtw', 'route': 'cuda',
                'source': 'vpd_tpu_torch/csrc/dtw.cu',
                'replaces': 'vpd_tpu/ops/pallas/dtw_kernel.py:53',
@@ -4658,7 +4795,10 @@ def main():
         cached_launches = phase_cache(card, train)
         phase_teacher(card, train)
         phase_heads(card)
+        corr_before = corr_op.launches
         yuv420_launches = phase_flow(card)
+        # the lookup kernel's launches in the flow phase's own process
+        corr['launches'] = corr_op.launches - corr_before
         prep_launches = phase_prep(card)
         effnet_launches, effnet_dir = phase_effnet(card, train)
         imported_launches = phase_torch_io(card, train, effnet_dir)
@@ -4683,7 +4823,7 @@ def main():
     train_augment['launches'] = sum(aug_by_path.values())
     train_augment['launches_by_path'] = aug_by_path
     print(card)
-    emit({'kernels': [preprocess, dtw, train_augment]})
+    emit({'kernels': [preprocess, dtw, train_augment, corr]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

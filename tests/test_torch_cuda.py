@@ -60,13 +60,22 @@ no host sync inside a training epoch of the fused sweep (dropout on)
 nor inside a proposal step, and the RNN's CUDA graphs training the
 fused sweep to the same weights as eager launches.
 
-Optical flow and the upload codec (no hand kernel: cuDNN convolutions,
-batched products and plain torch): RAFT basic and small in float32 on the
-card against the CPU with TF32 off (atol 1e-3, the CPU parity bar, after
-3 iterations), the yuv420 decode bit for bit against the numpy
-reference, the flow quantization with median subtraction against the
-numpy `flow_to_img`, and no host sync inside one RAFT batch (bf16, the
-quantization included).
+Optical flow and the upload codec (cuDNN convolutions, batched products,
+plain torch and the lookup kernel `csrc/corr_lookup.cu`): RAFT basic and
+small in float32 on the card against the CPU with TF32 off (atol 1e-3,
+the CPU parity bar, after 3 iterations), the yuv420 decode bit for bit
+against the numpy reference, the flow quantization with median
+subtraction against the numpy `flow_to_img`, and no host sync inside one
+RAFT batch (bf16, the quantization included). The lookup kernel
+(`ops/corr`) against its plain twin on the CPU at a relative L2 gap of at
+most 1e-6 a query: at the flow cell's shapes (256 pairs, 16 x 16, radius
+4), at radius 3, on a 64-px input's grid (levels down to 1 x 1),
+on a 12 x 20 grid, and at coordinates on cells, on the edge and with
+whole windows off the map (zeros); one launch a lookup, `iters` in a
+RAFT forward; float64, bf16 and strided levels refused; the gradients
+of the pyramid and the coordinates through the kernel's output against
+the twin's, and RAFT small trained one step on the card (`train=True`,
+`sequence_loss`) through the kernel against through the twin.
 
 The EfficientNet student (no hand kernel: cuDNN depthwise and pointwise
 convolutions): eval forward and one train step in float32 on cuda against
@@ -103,6 +112,7 @@ from vpd_tpu_torch.data.hbm_cache import CacheIndexSource, DeviceCropCache
 from vpd_tpu_torch.data.shards import ShardReader, write_raw_shards
 from vpd_tpu_torch.ops import _build
 from vpd_tpu_torch.ops import augment as taug_op
+from vpd_tpu_torch.ops import corr as tcorr
 from vpd_tpu_torch.ops import dtw_kernel as tdtw
 from vpd_tpu_torch.ops import preprocess as tpre
 from vpd_tpu_torch.geometry import coco as tcoco
@@ -232,11 +242,13 @@ def test_preprocess_kernel_offset_views(cuda_device, view, s, variant):
 @pytest.mark.cuda
 @pytest.mark.parametrize('source,builds', [('preprocess.cu', 6),
                                            ('dtw.cu', 12),
-                                           ('train_augment.cu', 6)])
+                                           ('train_augment.cu', 6),
+                                           ('corr_lookup.cu', 2)])
 def test_kernel_builds_do_not_spill(cuda_device, source, builds):
     """ptxas's report (`python -m vpd_tpu_torch.ops._build`): every build
-    of B1 (4 vector, 2 general), B2 and the input kernel (bf16, float32 or
-    float64 output, 3 or 5 channels) uses no local memory."""
+    of B1 (4 vector, 2 general), B2, the input kernel (bf16, float32 or
+    float64 output, 3 or 5 channels) and the lookup kernel (radius 3, 4)
+    uses no local memory."""
     kernels = _build.ptxas_resources(_build.ptxas_report([source]))
     assert len(kernels) == builds, kernels
     for k in kernels:
@@ -1200,6 +1212,170 @@ def test_raft_batch_makes_no_host_sync(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode('default')
     assert out.dtype == torch.uint8 and out.shape == (4, 128, 128, 2)
+
+
+# --- RAFT's correlation lookup kernel --------------------------------------
+
+# name: (pairs, grid H, grid W, radius); the cell's chunk is 256 pairs on a
+# 16 x 16 grid
+CORR_CASES = {'cell': (256, 16, 16, 4), 'small': (256, 16, 16, 3),
+              '64px': (3, 8, 8, 4), 'non_square': (3, 12, 20, 4),
+              'non_square_small': (2, 12, 20, 3)}
+
+
+def _corr_inputs(b, h, w, seed, spread=12.):
+    """A float32 pyramid of random 256-channel features and coordinates
+    up to spread / 2 cells around the grid, past every border."""
+    gen = torch.Generator().manual_seed(seed)
+    f1, f2 = (torch.randn((b, h, w, 256), generator=gen) for _ in range(2))
+    coords = traft.coords_grid(b, h, w) + spread * (
+        torch.rand((b, h, w, 2), generator=gen) - 0.5)
+    return traft.corr_pyramid(f1, f2), coords
+
+
+def _corr_gap(out, ref):
+    """Each query's relative L2 gap (a zero row against a zero row is
+    0)."""
+    d = (out.cpu() - ref).flatten(0, 2).norm(dim=1)
+    return d / ref.flatten(0, 2).norm(dim=1).clamp_min(1e-30)
+
+
+def _corr_on_card(pyramid, coords, radius, device):
+    before = tcorr.launches
+    out = tcorr.corr_lookup([p.to(device) for p in pyramid],
+                            coords.to(device), radius)
+    torch.cuda.synchronize()
+    assert tcorr.launches == before + 1
+    assert out.is_cuda and out.dtype == torch.float32
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(CORR_CASES))
+def test_corr_lookup_kernel_matches_twin(cuda_device, case):
+    """The kernel against the plain twin on the CPU, each query's row at
+    a relative L2 gap of at most 1e-6: the cell's shapes, raft-small's
+    radius, a 64-px input (levels down to 1 x 1), a non-square grid at
+    radius 4 and 3 (coordinates there a strided view)."""
+    b, h, w, r = CORR_CASES[case]
+    pyramid, coords = _corr_inputs(b, h, w, seed=len(case))
+    if case.startswith('non_square'):
+        coords = coords.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not coords.is_contiguous()
+    out = _corr_on_card(pyramid, coords, r, cuda_device)
+    ref = tcorr.corr_lookup_reference(pyramid, coords, r)
+    assert out.shape == ref.shape == (b, h, w, 4 * (2 * r + 1) ** 2)
+    assert float(_corr_gap(out, ref).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_corr_lookup_kernel_at_special_coordinates(cuda_device):
+    """Coordinates on whole cells, half cells, the map's last cell and
+    its negatives, and whole windows off every level's map (zeros,
+    exactly)."""
+    pyramid, _ = _corr_inputs(6, 16, 16, seed=7)
+    grid = traft.coords_grid(6, 16, 16)
+    coords = torch.stack([grid, grid + 0.5, grid.clamp(max=0.) + 15.,
+                          -grid, grid + 100., grid - 100.])[
+        torch.arange(6), torch.arange(6)]
+    out = _corr_on_card(pyramid, coords, 4, cuda_device).cpu()
+    ref = tcorr.corr_lookup_reference(pyramid, coords, 4)
+    assert float(_corr_gap(out, ref)[:4 * 256].max()) <= 1e-6
+    assert not out[4:].any() and not ref[4:].any()
+    assert out[:4].abs().amax(dim=(1, 2, 3)).min() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('small', [False, True])
+def test_raft_forward_launches_one_lookup_an_iteration(cuda_device, small):
+    model = traft.build_raft(small=small, seed=1).to(cuda_device)
+    im1, im2 = (t.to(cuda_device) for t in _flow_pairs(2, 64))
+    before = tcorr.launches
+    with torch.inference_mode():
+        flow = model(im1, im2, iters=5, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tcorr.launches == before + 5
+    assert torch.isfinite(flow).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fault', ['float64', 'bfloat16', 'strided'])
+def test_corr_lookup_kernel_refuses(cuda_device, fault):
+    """What the kernel does not take raises before a launch: float64 and
+    bf16 levels, a level that is not contiguous."""
+    pyramid, coords = _corr_inputs(2, 8, 8, seed=5)
+    pyramid = [p.to(cuda_device) for p in pyramid]
+    coords = coords.to(cuda_device)
+    if fault in ('float64', 'bfloat16'):
+        pyramid = [p.to(getattr(torch, fault)) for p in pyramid]
+    else:
+        pyramid[1] = pyramid[1].transpose(1, 2)
+    before = tcorr.launches
+    with pytest.raises(ValueError, match={
+            'float64': 'float32', 'bfloat16': 'float32',
+            'strided': 'contiguous'}[fault]):
+        tcorr.corr_lookup(pyramid, coords, 4)
+    assert tcorr.launches == before
+
+
+def _rel_gap(got, want):
+    return float((got.cpu() - want).norm() / want.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['64px', 'non_square_small'])
+def test_corr_lookup_kernel_backward_matches_twin(cuda_device, case):
+    """A pyramid and coordinates that require a gradient: one launch,
+    and the gradients of both against the twin's on the CPU for the
+    same output gradient, at a relative L2 gap of at most 1e-5 each."""
+    b, h, w, r = CORR_CASES[case]
+    grads = []
+    for device in ('cpu', cuda_device):
+        pyramid, coords = _corr_inputs(b, h, w, seed=11)
+        pyramid = [p.to(device).requires_grad_() for p in pyramid]
+        coords = coords.to(device).requires_grad_()
+        before = tcorr.launches
+        out = tcorr.corr_lookup(pyramid, coords, r)
+        assert tcorr.launches == before + (device != 'cpu')
+        out.backward(torch.randn(out.shape, generator=torch.Generator(
+        ).manual_seed(12)).to(device))
+        grads.append([coords.grad] + [p.grad for p in pyramid])
+    for want, got in zip(*grads):
+        assert got.is_cuda and _rel_gap(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_raft_trains_on_card_through_the_lookup_kernel(cuda_device,
+                                                       monkeypatch):
+    """RAFT small with `train=True` and `sequence_loss` on the card, with
+    autograd on: the parameters' gradients through the kernel against
+    those through the twin on the card (TF32 off), at a relative L2 gap
+    of at most 1e-4 over all parameters, one launch an iteration."""
+    model = traft.build_raft(small=True, seed=2).to(cuda_device)
+    im1, im2 = (t.to(cuda_device) for t in _flow_pairs(2, 64))
+    target = torch.randn((2, 64, 64, 2), generator=torch.Generator(
+    ).manual_seed(13)).to(cuda_device)
+    grads = []
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for twin in (False, True):
+            if twin:
+                monkeypatch.setattr(traft, 'corr_lookup',
+                                    tcorr.corr_lookup_reference)
+            model.zero_grad()
+            before = tcorr.launches
+            loss = traft.sequence_loss(
+                model(im1, im2, iters=3, train=True), target)
+            loss.backward()
+            assert tcorr.launches == before + (0 if twin else 3)
+            grads.append(torch.cat([p.grad.flatten()
+                                    for p in model.parameters()
+                                    if p.grad is not None]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert torch.isfinite(grads[0]).all() and grads[1].norm() > 0
+    assert _rel_gap(grads[0], grads[1].cpu()) <= 1e-4
 
 
 def _fed_masks(rng, b, model):

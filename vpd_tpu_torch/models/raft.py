@@ -16,11 +16,16 @@ is.
 * The correlation volume is one float32 batched product over feature
   maps upcast to float32 (vpd_tpu accumulates and stores it in float32
   under bf16), with a 4-level average-pooled pyramid.
-* The lookup is vpd_tpu's separable hat-weight form (`_tap_weights`,
-  `corr_lookup`): two small batched products a level. `grid_sample`'s
-  `2x/(W-1)-1` rescale gives NaN on the 1x1 level a 64-px input makes.
-  Taps are x-offset-major, as the official meshgrid(dy, dx) quirk makes
-  them.
+* The lookup (`corr_lookup`, `ops/corr.py`) is one launch of the CUDA
+  kernel `csrc/corr_lookup.cu` on the card: every level's bilinear
+  window of every query, read from a (2r+2)^2 window of its map, since
+  a level's taps share one fractional offset. On the CPU it is vpd_tpu's
+  separable hat-weight form, two small batched products a level.
+  `grid_sample`'s `2x/(W-1)-1` rescale gives NaN on the 1x1 level a
+  64-px input makes. Taps are x-offset-major, as the official
+  meshgrid(dy, dx) quirk makes them. The kernel has no backward of its
+  own: where autograd asks for one on the card, its output carries the
+  twin's, recomputed from the saved inputs.
 * `dtype=torch.bfloat16` runs every convolution in bf16 over float32
   parameters; the correlation, the lookup, the flow updates and the
   upsampling stay float32.
@@ -41,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.profiling import span
+from ..ops import corr as corr_op
 from ..ops.flow import div255
 from .resnet import FlaxBatchNorm2d
 
@@ -209,40 +215,15 @@ def corr_pyramid(fmap1, fmap2, num_levels=4):
     return pyramid
 
 
-def _tap_weights(centers, d, size):
-    """(N,) centers + (K,) offsets -> (N, K, size) bilinear hat weights.
-
-    The hat max(0, 1 - |pos - u|) over integer source positions u is
-    grid_sample(align_corners=True, padding_mode='zeros'): out-of-range
-    taps fade to zero contribution.
-    """
-    pos = centers[:, None, None] + d[None, :, None]
-    idx = torch.arange(size, dtype=torch.float32,
-                       device=centers.device)[None, None, :]
-    return (1. - (pos - idx).abs()).clamp_min(0.)
-
-
 def corr_lookup(pyramid, coords, radius=4):
     """Sample (2r+1)^2 neighbourhoods around coords at every level.
 
     coords (B, H, W, 2) at 1/8 resolution -> (B, H, W, levels*(2r+1)^2),
     each level's taps x-offset-major (k = i*(2r+1) + j for x offset i and
-    y offset j): the separable weights make two batched products a level,
-    x-interpolation then y-interpolation.
+    y offset j). `ops/corr.corr_lookup`: one kernel launch on the card,
+    the separable twin on the CPU. `RAFT.forward` calls it by this name.
     """
-    b, h, w, _ = coords.shape
-    flat = coords.reshape(b * h * w, 2)
-    d = torch.arange(-radius, radius + 1, dtype=torch.float32,
-                     device=coords.device)
-    out = []
-    for lvl, corr in enumerate(pyramid):
-        hl, wl = corr.shape[1], corr.shape[2]
-        wx = _tap_weights(flat[:, 0] / (2. ** lvl), d, wl)  # (N, K, wl)
-        wy = _tap_weights(flat[:, 1] / (2. ** lvl), d, hl)  # (N, K, hl)
-        tmp = torch.bmm(corr, wx.transpose(1, 2))  # (N, hl, K): v, i
-        vals = torch.bmm(tmp.transpose(1, 2), wy.transpose(1, 2))  # i, j
-        out.append(vals.reshape(b, h, w, -1))
-    return torch.cat(out, dim=-1)
+    return corr_op.corr_lookup(pyramid, coords, radius)
 
 
 class MotionEncoder(nn.Module):

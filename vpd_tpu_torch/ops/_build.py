@@ -64,6 +64,10 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P, _I, _P, _P,
                                _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _D, _D, _D, _D, _D, _D, _P)),
+    # maps (levels device pointers), heights, widths (levels ints each),
+    # levels, coords, out, n, radius, stream -> cudaError_t
+    'vpd_corr_lookup': (_I, (ctypes.POINTER(_P), ctypes.POINTER(_I),
+                             ctypes.POINTER(_I), _I, _P, _P, _L, _I, _P)),
 }
 
 
